@@ -3,9 +3,12 @@ Hopper.
 
 The JAX package `scintirete_tpu` stays the reference; this package keeps
 its module names (`ops`, `index`, `engine`) so each counterpart is easy to
-find. It imports `torch` and never `jax`. From the JAX package it uses only
-the jax-free modules `types`, `errors`, `config`, `utils.rwlock` and
-`native.build`.
+find. It imports `torch` and never `jax`, and nothing of the JAX package:
+the jax-free modules it needs (`types`, `errors`, `config`,
+`utils.rwlock`, `native.build` with its C++ source) are copied into it.
+The C++ link-application library is built with g++ into `build/native/`
+and the CUDA kernels with nvcc into `build/kernels/`, both beside the
+package, at first use.
 
 Every index takes an explicit `device`: "cuda" by default, which raises
 on a machine without CUDA (there is no fallback to the CPU). Pass
@@ -17,8 +20,8 @@ its candidate lists and must match the reference's.
 
 import torch
 
-from scintirete_tpu.errors import ScintireteError  # noqa: F401
-from scintirete_tpu.types import (  # noqa: F401
+from scintirete_tpu_torch.errors import ScintireteError  # noqa: F401
+from scintirete_tpu_torch.types import (  # noqa: F401
     CollectionConfig,
     DistanceMetric,
     HNSWParams,

@@ -23,20 +23,20 @@ from typing import Any, Optional, Sequence
 
 import numpy as np
 
-from scintirete_tpu.errors import (
+from scintirete_tpu_torch.errors import (
     ErrorCode,
     ScintireteError,
     dimension_mismatch,
 )
 from scintirete_tpu_torch.index.hnsw import HNSWIndex
-from scintirete_tpu.types import (
+from scintirete_tpu_torch.types import (
     CollectionConfig,
     CollectionInfo,
     SearchParams,
     SearchResult,
     Vector,
 )
-from scintirete_tpu.utils.rwlock import RWLock
+from scintirete_tpu_torch.utils.rwlock import RWLock
 
 
 class Collection:
@@ -88,6 +88,7 @@ class Collection:
         if self._tpu is not None:
             kwargs = dict(
                 search_batch_size=self._tpu.search_batch_size,
+                build_chunk_size=self._tpu.build_chunk_size,
                 device_search_min_size=self._tpu.device_search_min_size,
             )
         return HNSWIndex(
@@ -364,7 +365,7 @@ class Collection:
     @classmethod
     def from_state(cls, state: dict[str, Any], use_device: bool = True,
                    tpu_config=None, device="cuda") -> "Collection":
-        from scintirete_tpu.types import DistanceMetric, HNSWParams
+        from scintirete_tpu_torch.types import DistanceMetric, HNSWParams
 
         cfg_data = state["config"]
         config = CollectionConfig(
@@ -382,6 +383,7 @@ class Collection:
         if tpu_config is not None:
             hnsw_kw = dict(
                 search_batch_size=tpu_config.search_batch_size,
+                build_chunk_size=tpu_config.build_chunk_size,
                 device_search_min_size=tpu_config.device_search_min_size,
             )
         graph = state.get("graph")

@@ -17,7 +17,7 @@ import time
 from typing import Any, Optional
 
 from scintirete_tpu_torch.engine.collection import Collection
-from scintirete_tpu.errors import (
+from scintirete_tpu_torch.errors import (
     ErrorCode,
     ScintireteError,
     collection_exists,
@@ -25,7 +25,7 @@ from scintirete_tpu.errors import (
     db_exists,
     db_not_found,
 )
-from scintirete_tpu.types import CollectionConfig, DatabaseInfo
+from scintirete_tpu_torch.types import CollectionConfig, DatabaseInfo
 
 
 class Database:

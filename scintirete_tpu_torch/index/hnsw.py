@@ -3,19 +3,17 @@
 
 Search runs the pivot-entry batched search (device.py) on the index's
 torch device; mutations go through the host store and the device mirror
-re-syncs lazily (version keyed). Bulk inserts into an empty index, and
-appends that rebuild the union, use the exact-kNN builder (knn_build.py)
-on the same device.
+re-syncs lazily (version keyed). `bulk_insert` picks one of four paths,
+as the JAX package does: the exact-kNN build (knn_build.build) into an
+empty index, or of the union when an append at least quadruples the
+collection; the batched append (knn_build.append_batch) onto a built
+graph; otherwise chunked device insertion (bulk.py with
+DeviceIndex.build_descent), or host inserts for small batches.
 
 Concurrency model: readers share an RWLock; writers serialize on a
 separate mutex and take the write side only for short mutation sections.
-A bulk build assembles into a detached store off-lock and publishes it
-with one atomic swap.
-
-Not ported yet (each raises NotImplementedError before touching the store;
-see ROADMAP.md): the batched append of the JAX package
-(knn_build.append_batch) and its chunked device insertion
-(bulk.py / DeviceIndex.build_descent).
+A bulk build assembles into a detached store off-lock, and an append into
+a clone of the store off-lock; each publishes with one atomic swap.
 """
 
 from __future__ import annotations
@@ -27,9 +25,9 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from scintirete_tpu.errors import ErrorCode, ScintireteError, dimension_mismatch
-from scintirete_tpu.types import DistanceMetric, HNSWParams, SearchParams
-from scintirete_tpu.utils.rwlock import RWLock
+from scintirete_tpu_torch.errors import ErrorCode, ScintireteError, dimension_mismatch
+from scintirete_tpu_torch.types import DistanceMetric, HNSWParams, SearchParams
+from scintirete_tpu_torch.utils.rwlock import RWLock
 from scintirete_tpu_torch.index import host_algo
 from scintirete_tpu_torch.index.store import GraphStore, LayerStore
 
@@ -46,8 +44,6 @@ class GraphStats:
 # an append this large (and at least 4x the existing collection) is
 # rebuilt as a fresh exact-kNN graph of the union
 REBUILD_APPEND_MIN = 16384
-# the JAX package's batched-append threshold (knn_build.APPEND_MIN)
-APPEND_MIN = 2048
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -77,6 +73,7 @@ class HNSWIndex:
         search_batch_size: int = 256,
         device_search_min_size: int = 0,
         device: str | torch.device = "cuda",
+        build_chunk_size: int = 1024,
     ):
         params = params or HNSWParams()
         params.validate()
@@ -87,9 +84,13 @@ class HNSWIndex:
         self.device_dtype = device_dtype
         self.use_device = use_device
         self.search_batch_size = search_batch_size
+        self.build_chunk_size = build_chunk_size
         # below this many live vectors, searches stay on the host
         self.device_search_min_size = device_search_min_size
         self._device = None  # lazy DeviceIndex
+        # device-resident scan base + layer-0 adjacency kept between
+        # appends (knn_build.append_batch); build() re-seeds it
+        self._append_scan_cache: dict = {}
         self._rw = RWLock()
         # writer-writer serialization across whole operations
         self._write_mu = threading.RLock()
@@ -149,10 +150,12 @@ class HNSWIndex:
             self._register_slot(vector_id, slot)
 
     def bulk_insert(self, ids: Sequence[int], vectors: np.ndarray) -> None:
-        """Bulk build: from-scratch builds of device-eligible size, and
+        """Bulk insert: from-scratch builds of device-eligible size, and
         appends that at least quadruple the collection, use the exact-kNN
-        constructor (knn_build.py); small batches take sequential host
-        insertion (bulk.py)."""
+        constructor (knn_build.build); appends onto a built graph of at
+        least APPEND_MIN vectors (or 64 once the graph holds 200,000) take
+        the batched append (knn_build.append_batch); everything else takes
+        the chunked device-assisted path (bulk.py)."""
         from scintirete_tpu_torch.index import bulk, knn_build
 
         with self._write_mu:
@@ -179,7 +182,10 @@ class HNSWIndex:
                 tmp = GraphStore(
                     self.store.dim, self.store.params, self.store.metric
                 )
-                slots = knn_build.build(tmp, vectors, self.device)
+                slots = knn_build.build(
+                    tmp, vectors, self.device,
+                    scan_cache=self._append_scan_cache,
+                )
                 with self._rw.write():
                     self.store = tmp
                     self._device = None  # fresh mirror -> full upload
@@ -201,7 +207,10 @@ class HNSWIndex:
                 tmp = GraphStore(
                     self.store.dim, self.store.params, self.store.metric
                 )
-                slots = knn_build.build(tmp, all_vecs, self.device)
+                slots = knn_build.build(
+                    tmp, all_vecs, self.device,
+                    scan_cache=self._append_scan_cache,
+                )
                 all_ids = [int(v) for v in old_ids] + [int(v) for v in ids]
                 new_map = dict(zip(all_ids, (int(s) for s in slots)))
                 new_rev = np.zeros(tmp.cap, np.uint64)
@@ -215,16 +224,27 @@ class HNSWIndex:
                 self.use_device
                 and self.store.count >= knn_build.MIN_BUILD_SIZE
                 and (
-                    len(vectors) >= APPEND_MIN
+                    len(vectors) >= knn_build.APPEND_MIN
+                    # on large graphs even small appends go batched: the
+                    # chunked path's per-vector linking degrades there
                     or (self.store.count >= 200_000 and len(vectors) >= 64)
                 )
             ):
-                raise NotImplementedError(
-                    "batched append onto a built graph (knn_build.append_batch,"
-                    " kernel knn_lane_topc_masked) is not ported yet: "
-                    "ROADMAP.md Queue 1, append item"
+                # batched append into a CLONE off-lock (readers keep the
+                # old store), published with one swap. The clone continues
+                # dirty tracking, so the kept mirror (self._device)
+                # scatters only the rows the append touched
+                tmp = self.store.clone(track_dirty=True, share_append_safe=True)
+                slots = knn_build.append_batch(
+                    tmp, vectors, self.device,
+                    scan_cache=self._append_scan_cache,
                 )
+                with self._rw.write():
+                    self.store = tmp
+                    for vid, slot in zip(ids, slots):
+                        self._register_slot(int(vid), int(slot))
             else:
+                device = self._get_device() if self.use_device else None
                 id_iter = iter(ids)
 
                 def on_slots(new_slots):
@@ -234,7 +254,8 @@ class HNSWIndex:
                         self._register_slot(int(next(id_iter)), int(slot))
 
                 bulk.bulk_insert(
-                    self.store, vectors, use_device=self.use_device,
+                    self.store, vectors, device=device,
+                    chunk_size=self.build_chunk_size,
                     write_ctx=self._rw.write, on_slots=on_slots,
                 )
 
@@ -438,7 +459,7 @@ class HNSWIndex:
         **kw: Any,
     ) -> "HNSWIndex":
         """Restore without rebuild. `kw` forwards `device` and the serving
-        knobs (search_batch_size, device_search_min_size)."""
+        knobs (search_batch_size, build_chunk_size, device_search_min_size)."""
         params = HNSWParams(**state["params"])
         idx = cls(
             dim=state["dim"],

@@ -1,7 +1,7 @@
 """Host-side HNSW algorithm over the flat-array store.
 
 A copy of `scintirete_tpu/index/host_algo.py` (pure numpy), kept in the port
-because importing anything under `scintirete_tpu.index` pulls in jax.
+because the port imports nothing of the JAX package.
 
 This is the mutation path and the correctness oracle for the batched device
 kernels. It reproduces the reference's algorithmic behavior

@@ -1,7 +1,7 @@
 """Flat-array HNSW graph storage.
 
 A copy of `scintirete_tpu/index/store.py` (pure numpy), kept in the port
-because importing anything under `scintirete_tpu.index` pulls in jax.
+because the port imports nothing of the JAX package.
 
 The reference keeps `nodes map[uint64]*HNSWNode` with ragged per-node
 `Connections [][]uint64` (reference: hnsw.go:17-26, :107-125). Here the graph
@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from scintirete_tpu.types import HNSWParams, DistanceMetric
+from scintirete_tpu_torch.types import HNSWParams, DistanceMetric
 
 _MIN_CAP = 256
 _MIN_LAYER_CAP = 64

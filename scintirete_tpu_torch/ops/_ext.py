@@ -28,14 +28,22 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signature of each library's one entry point: (name, argtypes)
+_LL = ctypes.c_longlong
+# C entry points: name -> (library = csrc source stem, symbol, argtypes)
 SIGNATURES = {
-    "pivot_scan": ("scnt_pivot_entry_scan", [_P] * 6 + [_I] * 5 + [_P]),
+    "pivot_scan": (
+        "pivot_scan", "scnt_pivot_entry_scan", [_P] * 6 + [_I] * 5 + [_P],
+    ),
     "lane_scan": (
-        "scnt_knn_lane_scan",
-        [_P] * 8 + [_I, _I, ctypes.c_longlong, _I, _I, _I, _I, _P],
+        "lane_scan", "scnt_knn_lane_scan",
+        [_P] * 8 + [_I, _I, _LL, _I, _I, _I, _I, _P],
+    ),
+    "lane_scan_masked": (
+        "lane_scan", "scnt_knn_lane_scan_masked",
+        [_P] * 9 + [_I, _I, _LL, _I, _I, _I, _P],
     ),
 }
+LIBRARIES = sorted({lib for lib, _, _ in SIGNATURES.values()})
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes._CFuncPtr] = {}
@@ -56,11 +64,12 @@ def _lib_path(name: str) -> Path:
 
 
 def build_all() -> dict[str, Path]:
-    """Compile every kernel library that is not built yet, all at once.
-    Returns {name: library path}. The compiler's report (registers, shared
-    memory, spills) is kept beside each library as `<lib>.log`."""
+    """Compile every kernel library (one per `csrc/*.cu`) that is not
+    built yet, all at once. Returns {library name: path}. The compiler's
+    report (registers, shared memory, spills) is kept beside each library
+    as `<lib>.log`."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {name: _lib_path(name) for name in SIGNATURES}
+    paths = {name: _lib_path(name) for name in LIBRARIES}
     todo = {n: p for n, p in paths.items() if not p.exists()}
     procs = {}
     for name, path in todo.items():
@@ -99,16 +108,16 @@ def check_tensor(t, name: str, dtype, shape: tuple, device) -> None:
 
 
 def kernel(name: str) -> ctypes._CFuncPtr:
-    """The loaded C entry point of library `name` (built on first use)."""
+    """The loaded C entry point `name` of SIGNATURES (built on first use)."""
     fn = _loaded.get(name)
     if fn is not None:
         return fn
     with _lock:
         if not _loaded:
-            for lib_name, path in build_all().items():
-                symbol, argtypes = SIGNATURES[lib_name]
-                f = getattr(ctypes.CDLL(str(path)), symbol)
+            libs = {n: ctypes.CDLL(str(p)) for n, p in build_all().items()}
+            for entry, (lib_name, symbol, argtypes) in SIGNATURES.items():
+                f = getattr(libs[lib_name], symbol)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
-                _loaded[lib_name] = f
+                _loaded[entry] = f
         return _loaded[name]

@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from scintirete_tpu.types import DistanceMetric
+from scintirete_tpu_torch.types import DistanceMetric
 
 _L2 = int(DistanceMetric.L2)
 _COSINE = int(DistanceMetric.COSINE)

@@ -1,23 +1,28 @@
-"""Builder candidate scan: lane best-two fold + exact top-c.
+"""Builder candidate scans: lane best-two fold + exact top-c.
 
-Port of `scintirete_tpu/ops/pallas_scan.py::knn_lane_topc`. Lane j keeps
-the two least ranking scores among base rows {j, j + LANES, j + 2 LANES,
-...} of the first `grid_tiles` tiles, folded in tile order with strict <
-(`_fold_best_two`). Scores are RANKING form (L2 b^2 - 2 dot, cosine/IP
--dot) on bf16 inputs with f32 sums; columns >= n_valid and each row's own
-index are masked out. The 2 * LANES winners are then reduced to an exact
-top-c and finalized (L2 sqrt(s + q^2), cosine 1 + s).
+Ports of `scintirete_tpu/ops/pallas_scan.py::knn_lane_topc` and
+`::knn_lane_topc_masked`. Lane j keeps the two least ranking scores among
+base rows {j, j + LANES, j + 2 LANES, ...} of the first `grid_tiles`
+tiles, folded in tile order with strict < (`_fold_best_two`). Scores are
+RANKING form (L2 b^2 - 2 dot, cosine/IP -dot) on bf16 inputs with f32
+sums; masked rows and each query's own row are excluded. The mask is the
+prefix bound (columns >= n_valid) for `knn_lane_topc`, and a per-row f32
+`invalid` array (masked where > 0.5) for `knn_lane_topc_masked`. The
+2 * LANES winners are then reduced to an exact top-c and finalized (L2
+sqrt(s + q^2), cosine 1 + s).
 
-`lane_scan` computes the four lane arrays: the CUDA kernel
-(`csrc/lane_scan.cu`) on CUDA tensors, the plain version `lane_scan_plain`
-on CPU tensors. `knn_lane_topc` is the full wrapper.
+`lane_scan` / `lane_scan_masked` compute the four lane arrays: the CUDA
+kernel (`csrc/lane_scan.cu`, one templated body, two entry points) on
+CUDA tensors, the plain versions `lane_scan_plain` /
+`lane_scan_masked_plain` on CPU tensors. `knn_lane_topc` and
+`knn_lane_topc_masked` are the full wrappers.
 """
 
 from __future__ import annotations
 
 import torch
 
-from scintirete_tpu.types import DistanceMetric
+from scintirete_tpu_torch.types import DistanceMetric
 from scintirete_tpu_torch.ops.topk import stable_smallest
 
 _L2 = int(DistanceMetric.L2)
@@ -41,11 +46,14 @@ def _fold_best_two(s, si, d1, i1, d2, i2):
     return d1, i1, d2, i2
 
 
-def lane_scan_plain(qb, self_idx, base, base_sq, n_valid: int, metric: int,
-                    grid_tiles: int):
-    """Plain torch version of the Pallas kernel body: one tile of LANES
-    base rows per step, folded in tile order."""
-    B = qb.shape[0]
+def _fold_tiles_plain(qb, self_idx, base, base_sq, metric: int,
+                      grid_tiles: int, masked_rows):
+    """Plain torch version of the Pallas kernel bodies: one tile of LANES
+    base rows per step, folded in tile order. `masked_rows(lo, hi)` gives
+    the mask of base rows [lo, hi); rows past N are masked and add
+    nothing to a product."""
+    B, D = qb.shape
+    N = base.shape[0]
     dev = qb.device
     q32 = qb.float()
     d1 = torch.full((B, LANES), torch.inf, device=dev)
@@ -55,17 +63,71 @@ def lane_scan_plain(qb, self_idx, base, base_sq, n_valid: int, metric: int,
     lane = torch.arange(LANES, dtype=torch.int32, device=dev)
     self_col = self_idx.to(torch.int32)[:, None]
     for t in range(grid_tiles):
-        rows = slice(t * LANES, (t + 1) * LANES)
-        dots = q32 @ base[rows].float().T  # bf16 products are exact in f32
+        lo = t * LANES
+        hi = min(lo + LANES, N)
+        tile = base[lo:hi].float()
+        tile_sq = base_sq[lo:hi]
+        bad_rows = masked_rows(lo, hi)
+        if hi - lo < LANES:  # ragged last tile
+            pad = LANES - (hi - lo)
+            tile = torch.cat([tile, tile.new_zeros((pad, D))])
+            tile_sq = torch.cat([tile_sq, tile_sq.new_zeros(pad)])
+            bad_rows = torch.cat(
+                [bad_rows, torch.ones(pad, dtype=torch.bool, device=dev)]
+            )
+        dots = q32 @ tile.T  # bf16 products are exact in f32
         if metric == _L2:
-            s = base_sq[rows][None, :] - 2.0 * dots
+            s = tile_sq[None, :] - 2.0 * dots
         else:
             s = -dots
-        si = (lane + t * LANES)[None, :].expand(B, LANES)
-        bad = (si >= n_valid) | (si == self_col)
+        si = (lane + lo)[None, :].expand(B, LANES)
+        bad = bad_rows[None, :] | (si == self_col)
         s = torch.where(bad, torch.inf, s)
         d1, i1, d2, i2 = _fold_best_two(s, si, d1, i1, d2, i2)
     return d1, i1, d2, i2
+
+
+def lane_scan_plain(qb, self_idx, base, base_sq, n_valid: int, metric: int,
+                    grid_tiles: int):
+    """Plain version of `lane_scan`: rows >= n_valid are masked."""
+    lane = torch.arange(LANES, dtype=torch.int32, device=qb.device)
+    return _fold_tiles_plain(
+        qb, self_idx, base, base_sq, metric, grid_tiles,
+        lambda lo, hi: lane[: hi - lo] + lo >= n_valid,
+    )
+
+
+def lane_scan_masked_plain(qb, self_idx, base, base_sq, invalid,
+                           metric: int, grid_tiles: int):
+    """Plain version of `lane_scan_masked`: rows with invalid > 0.5, and
+    rows >= N, are masked."""
+    return _fold_tiles_plain(
+        qb, self_idx, base, base_sq, metric, grid_tiles,
+        lambda lo, hi: invalid[lo:hi] > 0.5,
+    )
+
+
+def _checked_lane_arrays(qb, self_idx, base, base_sq, metric: int):
+    """Check the CUDA inputs both scans share. Returns the four empty lane
+    arrays (d1, i1, d2, i2), each [B, LANES], and whether the kernel may
+    take its 16-byte loads."""
+    from scintirete_tpu_torch.ops._ext import check_tensor
+
+    B, D = qb.shape
+    N = base.shape[0]
+    dev = qb.device
+    check_tensor(qb, "qb", torch.bfloat16, (B, D), dev)
+    check_tensor(self_idx, "self_idx", torch.int32, (B,), dev)
+    check_tensor(base, "base", torch.bfloat16, (N, D), dev)
+    check_tensor(base_sq, "base_sq", torch.float32, (N,), dev)
+    if metric not in (_L2, _COSINE, _IP):
+        raise ValueError(f"unsupported metric code: {metric}")
+    d = [torch.empty((B, LANES), dtype=torch.float32, device=dev)
+         for _ in range(2)]
+    i = [torch.empty((B, LANES), dtype=torch.int32, device=dev)
+         for _ in range(2)]
+    aligned = D % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (qb, base))
+    return (d[0], i[0], d[1], i[1]), aligned
 
 
 def lane_scan(qb, self_idx, base, base_sq, n_valid: int, metric: int,
@@ -86,26 +148,16 @@ def lane_scan(qb, self_idx, base, base_sq, n_valid: int, metric: int,
         )
     if qb.device.type != "cuda":
         raise ValueError(f"lane_scan: unsupported device {qb.device}")
-    from scintirete_tpu_torch.ops._ext import check_tensor as _check
     from scintirete_tpu_torch.ops._ext import kernel
 
-    dev = qb.device
-    _check(qb, "qb", torch.bfloat16, (B, D), dev)
-    _check(self_idx, "self_idx", torch.int32, (B,), dev)
-    _check(base, "base", torch.bfloat16, (N, D), dev)
-    _check(base_sq, "base_sq", torch.float32, (N,), dev)
-    if metric not in (_L2, _COSINE, _IP):
-        raise ValueError(f"unsupported metric code: {metric}")
-    d1 = torch.empty((B, LANES), dtype=torch.float32, device=dev)
-    d2 = torch.empty((B, LANES), dtype=torch.float32, device=dev)
-    i1 = torch.empty((B, LANES), dtype=torch.int32, device=dev)
-    i2 = torch.empty((B, LANES), dtype=torch.int32, device=dev)
-    aligned = D % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (qb, base))
+    (d1, i1, d2, i2), aligned = _checked_lane_arrays(
+        qb, self_idx, base, base_sq, metric
+    )
     err = kernel("lane_scan")(
         qb.data_ptr(), self_idx.data_ptr(), base.data_ptr(),
         base_sq.data_ptr(), d1.data_ptr(), i1.data_ptr(), d2.data_ptr(),
         i2.data_ptr(), B, D, N, int(n_valid), grid_tiles, metric,
-        int(aligned), torch.cuda.current_stream(dev).cuda_stream,
+        int(aligned), torch.cuda.current_stream(qb.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"knn_lane_topc launch failed: cudaError {err}")
@@ -116,19 +168,52 @@ def lane_scan(qb, self_idx, base, base_sq, n_valid: int, metric: int,
 lane_scan.launches = 0
 
 
-def knn_lane_topc(queries, self_idx, base, base_sq, n_valid: int,
-                  metric: int, c: int, grid_tiles: int, q_sq=None):
-    """Top-c prefix neighbors of each query row over the first
-    grid_tiles * LANES base rows, self-excluded, with TRUE finalized
-    distances. Returns (cd [B, c] f32 asc, ci [B, c] i32), -1/inf padded.
+def lane_scan_masked(qb, self_idx, base, base_sq, invalid, metric: int,
+                     grid_tiles: int):
+    """Lane arrays (d1, i1, d2, i2), each [B, LANES], of the masked scan:
+    the body of the masked Pallas call. qb [B, D] bf16, self_idx [B] i32
+    (-1 = no exclusion), base [N, D] bf16 (any N), base_sq [N] f32,
+    invalid [N] f32 (> 0.5 = masked), grid_tiles * LANES < N + LANES."""
+    B, D = qb.shape
+    N = base.shape[0]
+    if not 0 <= grid_tiles <= -(-N // LANES):
+        raise ValueError(
+            f"lane_scan_masked: grid_tiles={grid_tiles} exceeds the "
+            f"{-(-N // LANES)} tiles of N={N}"
+        )
+    if qb.device.type == "cpu":
+        return lane_scan_masked_plain(
+            qb, self_idx, base, base_sq, invalid, metric, grid_tiles
+        )
+    if qb.device.type != "cuda":
+        raise ValueError(f"lane_scan_masked: unsupported device {qb.device}")
+    from scintirete_tpu_torch.ops._ext import check_tensor, kernel
 
-    queries [B, D] f32 or bf16 scan-form rows (normalized for cosine);
-    q_sq [B] f32: the true squared norms for the L2 finalization."""
-    qb = queries.float().to(torch.bfloat16).contiguous()
-    d1, i1, d2, i2 = lane_scan(
-        qb, self_idx.to(torch.int32).contiguous(), base, base_sq, n_valid,
-        metric, grid_tiles,
+    check_tensor(invalid, "invalid", torch.float32, (N,), qb.device)
+    (d1, i1, d2, i2), aligned = _checked_lane_arrays(
+        qb, self_idx, base, base_sq, metric
     )
+    err = kernel("lane_scan_masked")(
+        qb.data_ptr(), self_idx.data_ptr(), base.data_ptr(),
+        base_sq.data_ptr(), invalid.data_ptr(), d1.data_ptr(), i1.data_ptr(),
+        d2.data_ptr(), i2.data_ptr(), B, D, N, grid_tiles, metric,
+        int(aligned), torch.cuda.current_stream(qb.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"knn_lane_topc_masked launch failed: cudaError {err}"
+        )
+    lane_scan_masked.launches += 1
+    return d1, i1, d2, i2
+
+
+lane_scan_masked.launches = 0
+
+
+def _top_c(lanes, queries, metric: int, c: int, q_sq):
+    """Exact top-c of the 2 * LANES lane winners, finalized: the Pallas
+    wrappers' tail. Returns (cd [B, c] f32 asc, ci [B, c] i32)."""
+    d1, i1, d2, i2 = lanes
     lane_d = torch.cat([d1, d2], dim=1)
     lane_i = torch.cat([i1, i2], dim=1)
     cd, sel = stable_smallest(lane_d, c)  # lax.top_k's tie order
@@ -142,3 +227,34 @@ def knn_lane_topc(queries, self_idx, base, base_sq, n_valid: int,
         cd = 1.0 + cd  # -cos -> 1 - cos
     cd = torch.where(ci < 0, torch.inf, cd)
     return cd, ci
+
+
+def knn_lane_topc(queries, self_idx, base, base_sq, n_valid: int,
+                  metric: int, c: int, grid_tiles: int, q_sq=None):
+    """Top-c prefix neighbors of each query row over the first
+    grid_tiles * LANES base rows, self-excluded, with TRUE finalized
+    distances. Returns (cd [B, c] f32 asc, ci [B, c] i32), -1/inf padded.
+
+    queries [B, D] f32 or bf16 scan-form rows (normalized for cosine);
+    q_sq [B] f32: the true squared norms for the L2 finalization."""
+    qb = queries.float().to(torch.bfloat16).contiguous()
+    lanes = lane_scan(
+        qb, self_idx.to(torch.int32).contiguous(), base, base_sq, n_valid,
+        metric, grid_tiles,
+    )
+    return _top_c(lanes, queries, metric, c, q_sq)
+
+
+def knn_lane_topc_masked(queries, self_idx, base, base_sq, invalid,
+                         metric: int, c: int, grid_tiles: int, q_sq=None):
+    """Masked-subset variant of `knn_lane_topc`: top-c over the base rows
+    of the first grid_tiles tiles whose invalid mask is <= 0.5,
+    self-excluded, TRUE finalized distances. One cached base serves layer
+    0 and every upper layer of an append (mask = non-member | deleted |
+    padding). Returns (cd [B, c] f32 asc, ci [B, c] i32), -1/inf padded."""
+    qb = queries.float().to(torch.bfloat16).contiguous()
+    lanes = lane_scan_masked(
+        qb, self_idx.to(torch.int32).contiguous(), base, base_sq,
+        invalid.float().contiguous(), metric, grid_tiles,
+    )
+    return _top_c(lanes, queries, metric, c, q_sq)

@@ -11,7 +11,6 @@ differently, so they are held to a per-layer overlap and to recall.
 import numpy as np
 import pytest
 
-from scintirete_tpu.config import TPUConfig
 from scintirete_tpu.index import HNSWIndex as JaxHNSWIndex
 from scintirete_tpu.types import (
     CollectionConfig,
@@ -19,6 +18,7 @@ from scintirete_tpu.types import (
     HNSWParams,
     SearchParams,
 )
+from scintirete_tpu_torch.config import TPUConfig
 from scintirete_tpu_torch.engine import Engine
 from scintirete_tpu_torch.index.hnsw import HNSWIndex
 from scintirete_tpu_torch.ops.distance import distance_np
@@ -142,11 +142,12 @@ def test_recall_and_state_crosses_to_jax(built, data):
 
 
 def test_unported_paths_raise_before_mutation(built, data):
+    """What the port still leaves out raises NotImplementedError naming
+    ROADMAP.md, before it changes anything: the descent search entry mode,
+    refine_rounds > 0, the flat index, sharding and AOF replay."""
     base, _ = data
     port, _ = built
     before = port.export_graph_state()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.bulk_insert(list(range(N + 1, N + 2049)), base[:2048])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port._get_device().search(port.store, base[:4], K, 12,
                                   entry_mode="descent")
@@ -155,15 +156,22 @@ def test_unported_paths_raise_before_mutation(built, data):
     np.testing.assert_array_equal(after["neighbors0"], before["neighbors0"])
     assert port.size() == N
 
-    small = HNSWIndex(D, PARAMS, DistanceMetric.COSINE, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        small.bulk_insert(list(range(1, 301)), base[:300])  # chunked path
-    assert small.store.count == 0 and small.store.cap == 256
     refine = HNSWIndex(D, HNSWParams(seed=1, refine_rounds=1),
                        DistanceMetric.COSINE, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         refine.bulk_insert(list(range(1, N + 1)), base)
-    assert refine.store.count == 0
+    assert refine.store.count == 0 and refine.size() == 0
+
+    engine = Engine(device="cpu")
+    db = engine.create_database("db")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        db.create_collection(CollectionConfig(name="f", index_type="flat"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(device="cpu", tpu_config=TPUConfig(shard_devices=2)) \
+            .create_database("x").create_collection(CollectionConfig(name="s"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        engine.apply_command({"command_type": "CREATE_DATABASE"})
+    assert db.list_collections() == [] and engine.list_databases() == ["db"]
 
 
 def test_engine_surface_on_cpu(data):

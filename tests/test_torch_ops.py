@@ -16,9 +16,15 @@ from scintirete_tpu.ops.distance import distance_np as jax_distance_np
 from scintirete_tpu.ops.distance import pairwise_distance as jax_pairwise
 from scintirete_tpu.ops.pallas_pivot import pivot_entry_scan as jax_pivot_scan
 from scintirete_tpu.ops.pallas_scan import knn_lane_topc as jax_knn_lane_topc
+from scintirete_tpu.ops.pallas_scan import (
+    knn_lane_topc_masked as jax_knn_lane_topc_masked,
+)
 from scintirete_tpu.ops.topk import brute_force_topk as jax_brute_force
 from scintirete_tpu_torch.ops import distance as tdist
-from scintirete_tpu_torch.ops.lane_scan import knn_lane_topc
+from scintirete_tpu_torch.ops.lane_scan import (
+    knn_lane_topc,
+    knn_lane_topc_masked,
+)
 from scintirete_tpu_torch.ops.pivot_scan import pivot_entry_scan
 from scintirete_tpu_torch.ops.topk import brute_force_topk
 
@@ -156,6 +162,25 @@ def test_pivot_entry_scan_ties_go_to_lowest_index(rng):
     assert int(got_i[0]) == int(want_i[0]) == 100
 
 
+def _assert_topc_matches(q, base_sq, metric, got_d, got_i, want_d, want_i):
+    """Top-c distances within 1e-5 (L2: squared, relative to the squared
+    norms that cancel) and ids equal on every row with no near-tie."""
+    if metric == 1:
+        # sqrt(s + q^2) amplifies the f32 sum-order error of a cancelled
+        # difference near 0: compare squared distances, 1e-5 relative to
+        # the squared norms that cancel
+        fin = np.isfinite(want_d)
+        assert np.array_equal(fin, np.isfinite(got_d))
+        scale = np.sum(q * q, axis=1)[:, None] + base_sq.max()
+        err = np.abs(got_d**2 - want_d**2)[fin]
+        assert np.all(err <= 1e-5 * np.broadcast_to(scale, fin.shape)[fin])
+    else:
+        np.testing.assert_allclose(got_d, want_d, **TOL)
+    untied = _untied(want_d)
+    assert untied.mean() > 0.8
+    np.testing.assert_array_equal(got_i[untied], want_i[untied])
+
+
 @pytest.mark.parametrize("metric", METRICS)
 @pytest.mark.parametrize("grid_tiles,n_valid", [(1, 1000), (2, 1500), (2, 2048)])
 def test_knn_lane_topc_plain_matches_pallas(rng, metric, grid_tiles, n_valid):
@@ -179,20 +204,43 @@ def test_knn_lane_topc_plain_matches_pallas(rng, metric, grid_tiles, n_valid):
     )
     want_d, want_i = np.asarray(want_d), np.asarray(want_i)
     got_d, got_i = got_d.numpy(), got_i.numpy()
-    if metric == 1:
-        # sqrt(s + q^2) amplifies the f32 sum-order error of a cancelled
-        # difference near 0: compare squared distances, 1e-5 relative to
-        # the squared norms that cancel
-        fin = np.isfinite(want_d)
-        assert np.array_equal(fin, np.isfinite(got_d))
-        scale = np.sum(q * q, axis=1)[:, None] + base_sq.max()
-        err = np.abs(got_d**2 - want_d**2)[fin]
-        assert np.all(err <= 1e-5 * np.broadcast_to(scale, fin.shape)[fin])
-    else:
-        np.testing.assert_allclose(got_d, want_d, **TOL)
-    untied = _untied(want_d)
-    assert untied.mean() > 0.8
-    np.testing.assert_array_equal(got_i[untied], want_i[untied])
+    _assert_topc_matches(q, base_sq, metric, got_d, got_i, want_d, want_i)
     limit = min(n_valid, grid_tiles * 1024)
     assert np.all(got_i < limit)
+    assert not np.any(got_i == self_idx[:, None])
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("grid_tiles", [2, 3])
+def test_knn_lane_topc_masked_plain_matches_pallas(rng, metric, grid_tiles):
+    """The append's masked scan: a random member subset with tombstones
+    and a masked tail, queries that are members (self rows) and not."""
+    N, D, B, c = 3072, 33, 40, 16
+    base = rng.standard_normal((N, D)).astype(np.float32)
+    if metric == 2:
+        base /= np.linalg.norm(base, axis=1, keepdims=True)
+    base_sq = np.sum(base * base, axis=1).astype(np.float32)
+    invalid = (rng.random(N) < 0.6).astype(np.float32)
+    invalid[2500:] = 1.0  # the padded tail past the store's count
+    members = np.flatnonzero(invalid < 0.5)
+    rows = np.concatenate([rng.choice(members, B - 8, replace=False),
+                           rng.choice(np.flatnonzero(invalid > 0.5), 8)])
+    q = base[rows]
+    self_idx = rows.astype(np.int32)
+    self_idx[::5] = -1  # no exclusion for these rows
+    want_d, want_i = jax_knn_lane_topc_masked(
+        jnp.asarray(q), jnp.asarray(self_idx),
+        jnp.asarray(base).astype(jnp.bfloat16), jnp.asarray(base_sq),
+        jnp.asarray(invalid), metric=metric, c=c, grid_tiles=grid_tiles,
+        interpret=True,
+    )
+    got_d, got_i = knn_lane_topc_masked(
+        _t(q), _t(self_idx), _t(base).to(torch.bfloat16), _t(base_sq),
+        _t(invalid), metric=metric, c=c, grid_tiles=grid_tiles,
+    )
+    want_d, want_i = np.asarray(want_d), np.asarray(want_i)
+    got_d, got_i = got_d.numpy(), got_i.numpy()
+    _assert_topc_matches(q, base_sq, metric, got_d, got_i, want_d, want_i)
+    assert not np.any(invalid[got_i[got_i >= 0]] > 0.5)
+    assert np.all(got_i < grid_tiles * 1024)
     assert not np.any(got_i == self_idx[:, None])
