@@ -8,18 +8,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
     (nvcc, into build/kernels/) and the C++ link-application library (g++,
     into build/native/), and fails unless the C++ library loaded (so no
     number below comes from its numpy fallback); prints the build seconds;
- 3. holds each kernel against its plain torch version on the card, at the
-    shapes of the main path: pivot_entry_scan (B=256, D=128, R=65,536 and a
+ 3. holds each of the seven kernels against its plain torch version on the
+    card, at the shapes of the main path: pivot_entry_scan (B=256, D=128, R=65,536 and a
     ragged R, 3 metrics, deleted pivots, all deleted), knn_lane_topc
     (B=2048, N=1,048,576, D=128, c=64, 3 metrics, partial n_valid) and
     knn_lane_topc_masked (B=2048, N=1,048,576, D=128, c=64, 3 metrics,
     self rows; mask = non-members of the layer-4 membership of a level
     draw, about 1/16 of the rows kept, plus 1% tombstones and a padded
-    tail past 1,000,000); prints the largest distance difference, the share
-    of equal ids, the median times of kernel, plain version and the
-    torch.matmul of the product inside (CUDA events), and the kernel's
-    bound (the larger of its operations over the card's peak and its bytes
-    over 3.35 TB/s);
+    tail past 1,000,000), and the four scans of the flat index
+    (lane_topk_scan_packed_int8 at tile groups of 1 and 4,
+    lane_topk_scan_packed, lane_topk_scan_int8, lane_topk_scan: B=1024,
+    N=1,048,576, D=128, 3 metrics, 1% deleted rows and an invalid tail
+    past 1,000,000; the int8 scans must equal their plain versions bit for
+    bit, the bf16 ones within the f32 sum-order tolerance;
+    lane_topk_scan_packed_int8 also with one query and with 4,096, the
+    other two batch sizes the flat path launches it at); prints the
+    largest difference, the share of equal ids, the median times of
+    kernel, plain version and the library product inside (torch.matmul on
+    bf16, torch._int_mm on int8; CUDA events), and the kernel's bound (the
+    larger of its operations over the card's peak and its bytes over
+    3.35 TB/s);
  4. drives the main path at full size: Engine -> create_database ->
     create_collection (cosine HNSW, m=16, ef_construction=200,
     ef_search=12, seed=42, heuristic) -> Collection.insert of a 1,000,000 x
@@ -40,8 +48,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
     x 128 clustered vectors in 50 batches of 1,000 (each under the append
     threshold, so every batch takes the chunked device path); prints the
     seconds per batch and fails below recall@10 0.90 at ef_search=64;
- 7. prints the kernels' JSON line, the card's line, and last
-    {"ok": true, "device": {...}}.
+ 7. flat index at full size: Engine -> create_collection
+    (index_type="flat", cosine) -> Collection.insert of the same 1,000,000
+    x 128 corpus -> search_batch in batches of 1024 and one
+    search_batch_arrays of all 4,096 queries; fails below recall@10 0.99
+    against the brute force, if any returned distance differs from the
+    exact distance of its row by more than 1e-5, if arrays and tuples
+    disagree, if a deleted id comes back after deleting 1%, or if
+    lane_topk_scan_packed_int8 was not launched; prints insert seconds,
+    QPS at both batch sizes and peak device memory. Then the same corpus
+    through FlatIndex(scan_dtype="bfloat16") directly, same checks, and
+    lane_topk_scan_packed must have been launched. The counts of all four
+    flat scans are set to 0 before this phase and read after it;
+ 8. prints the kernels' JSON line (seven entries), the card's line, and
+    last {"ok": true, "device": {...}}.
+
+On one H100 the whole run takes 2 to 3.5 minutes of the 20 it may take.
 
 This script imports nothing of JAX and nothing of the JAX package, and
 reads no environment variable. The data is made from --seed.
@@ -50,6 +72,7 @@ reads no environment variable. The data is made from --seed.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -58,6 +81,8 @@ import time
 import numpy as np
 
 RECALL_GATE = 0.95
+FLAT_RECALL_GATE = 0.99  # exact search: only first-pass rounding can miss
+FLAT_DIST_TOL = 1e-5  # returned distance against the exact one of its row
 SELF_GATE = 0.99
 CHUNKED_GATE = 0.90  # tests/test_bulk_build.py gates the chunked build here
 DIM, K, BATCH = 128, 10, 1024
@@ -67,7 +92,7 @@ APPEND_BATCHES, APPEND_BATCH = 4, 4096
 CHUNKED_BATCHES, CHUNKED_BATCH = 50, 1000
 # the card's published peaks (H100 SXM data sheet, dense): operations/s
 # by input type, and device-memory bytes/s
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 
 
@@ -318,6 +343,253 @@ def check_lane_masked(dev, seed):
     return worst_err, timing, bound
 
 
+FLAT_B, FLAT_N, FLAT_COUNT = 1024, 1 << 20, 1_000_000
+KEY_RTOL = 2.0**-10  # one unit of the last mantissa bit a packed key keeps
+
+
+def flat_kernel_inputs(dev, seed):
+    """Inputs of the four flat scans at the flat path's shape: one search
+    batch against a full 2^20-row capacity, 1% deleted rows, and the rows
+    past 1,000,000 zero and invalid as in a FlatIndex mirror."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed + 4)
+    base32 = torch.randn(FLAT_N, DIM, generator=g, device=dev)
+    base32[FLAT_COUNT:] = 0.0
+    q = torch.randn(FLAT_B, DIM, generator=g, device=dev)
+    invalid = (torch.rand(FLAT_N, generator=g, device=dev) < 0.01).float()
+    invalid[FLAT_COUNT:] = 1.0
+    return q, base32, invalid
+
+
+def scan_form(x, metric):
+    """Cosine scans rank by -dot over normalized rows; zero rows stay 0."""
+    if metric != 2:
+        return x
+    n = x.norm(dim=1, keepdim=True)
+    return (x / n.clamp(min=1e-30)) * (n > 1e-30)
+
+
+def no_invalid_row(name, rows, invalid):
+    if bool((invalid[rows.clamp(min=0).long()] > 0.5)[rows >= 0].any()):
+        fail(f"{name}: a deleted or empty row came out of the scan")
+
+
+def log_timing(name, what, timing, bound):
+    lib = "no single call" if timing[2] is None else f"{timing[2]:.3f} ms"
+    log(f"{name} B={FLAT_B} N={FLAT_N} D={DIM} cosine: kernel "
+        f"{timing[0]:.3f} ms, plain {timing[1]:.3f} ms, {what} {lib}, "
+        f"bound {bound[0]:.4f} ms ({bound[1]})")
+
+
+def int_mm_ms(q8, base8):
+    """The int8 product alone as one library call, where torch._int_mm's
+    shape rules take it; None (with the reason) where they do not."""
+    import torch
+
+    try:
+        return median_ms(lambda: torch._int_mm(q8, base8.T), 10)
+    except RuntimeError as exc:
+        log(f"torch._int_mm does not take this product: {exc}")
+        return None
+
+
+def check_packed_int8(dev, inputs):
+    import torch
+
+    from scintirete_tpu_torch.ops import packed_scan as ps
+
+    name = "lane_topk_scan_packed_int8"
+    q, base32, invalid = inputs
+    worst, timing = 0.0, None
+    for metric in (1, 2, 3):
+        qs, b32 = scan_form(q, metric), scan_form(base32, metric)
+        base8, scale = ps.quantize_rows(b32)
+        bsq = (b32 * b32).sum(1)
+        for tps in (1, 4):  # tile groups of 1 and 4
+            args = (qs, base8, scale, bsq, invalid, metric)
+            keys, rows = ps.lane_topk_scan_packed_int8(*args, tps=tps)
+            q8, qs2, bs, bq = ps.packed_int8_inputs(qs, scale, bsq, invalid, metric)
+
+            def plain():
+                return ps.lane_topk_scan_packed_int8_plain(
+                    q8, qs2, base8, bs, bq, metric, min(ps._PREMIN, tps)
+                )
+
+            want = plain()
+            torch.cuda.synchronize()
+            same = keys.view(torch.int32) == want.view(torch.int32)
+            worst = max(worst, float((keys - want).abs().max()))
+            # the s8 x s8 -> s32 product is exact and no multiply is
+            # contracted: bit for bit
+            if not bool(same.all()):
+                fail(f"{name} metric={metric} tps={tps}: "
+                     f"{int((~same).sum())} keys differ from the plain version")
+            if not torch.equal(rows, ps.unpack_lane_keys(want)[1]):
+                fail(f"{name} metric={metric} tps={tps}: rows differ")
+            no_invalid_row(name, rows, invalid)
+            log(f"{name} metric={metric} group={min(ps._PREMIN, tps)}: keys "
+                f"equal bit for bit, rows equal")
+            if metric == 2 and tps == 1:
+                timing = (
+                    median_ms(lambda: ps.lane_topk_scan_packed_int8(*args), 10),
+                    median_ms(plain, 2),
+                    int_mm_ms(q8, base8),
+                )
+                # the flat path also launches this scan with one query
+                # (a block with 63 padded query rows) and with all 4,096
+                # (a grid four times deeper): same base, cosine, bit for bit
+                g = torch.Generator(device=dev).manual_seed(4096)
+                q_all = scan_form(
+                    torch.randn(N_QUERIES, DIM, generator=g, device=dev), metric
+                )
+                want = ps.lane_topk_scan_packed_int8_plain(
+                    *ps.packed_int8_inputs(q_all, scale, bsq, invalid, metric)[:2],
+                    base8, bs, bq, metric, 1,
+                )
+                for b in (N_QUERIES, 1):
+                    keys, rows = ps.lane_topk_scan_packed_int8(
+                        q_all[:b], *args[1:]
+                    )
+                    if not torch.equal(keys.view(torch.int32),
+                                       want[:b].view(torch.int32)):
+                        fail(f"{name} B={b}: keys differ from the plain version")
+                    if not torch.equal(rows, ps.unpack_lane_keys(want[:b])[1]):
+                        fail(f"{name} B={b}: rows differ")
+                    log(f"{name} metric={metric} B={b}: keys equal bit for "
+                        f"bit, rows equal")
+    # f32 queries, int8 base, scales, norms and mask in; keys and rows out
+    nbytes = 4 * FLAT_B * DIM + FLAT_N * DIM + 12 * FLAT_N + 16 * FLAT_B * 1024
+    bound = bound_ms(2.0 * FLAT_B * FLAT_N * DIM, "int8", nbytes)
+    log_timing(name, "torch._int_mm", timing, bound)
+    return worst, timing, bound
+
+
+def check_packed(dev, inputs):
+    import torch
+
+    from scintirete_tpu_torch.ops import packed_scan as ps
+
+    name = "lane_topk_scan_packed"
+    q, base32, invalid = inputs
+    worst, timing = 0.0, None
+    for metric in (1, 2, 3):
+        qs, b32 = scan_form(q, metric), scan_form(base32, metric)
+        base = b32.to(torch.bfloat16)
+        qb = qs.to(torch.bfloat16)
+        bsq = (b32 * b32).sum(1)
+        args = (qs, base, bsq, invalid, metric)
+        keys, rows = ps.lane_topk_scan_packed(*args)
+        want = ps.lane_topk_scan_packed_plain(qb, base, bsq, invalid, metric)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(keys).all()):
+            fail(f"{name} metric={metric}: a packed key is not finite")
+        diff = (keys - want).abs()
+        worst = max(worst, float(diff.max()))
+        # the f32 sum of a product runs in another order than the
+        # library's: one unit of the last mantissa bit a key keeps
+        if bool((diff > KEY_RTOL * want.abs() + 1e-30).any()):
+            fail(f"{name} metric={metric}: keys differ by {float(diff.max())}")
+        share = float((rows == ps.unpack_lane_keys(want)[1]).float().mean())
+        bits = float((keys.view(torch.int32) == want.view(torch.int32))
+                     .float().mean())
+        if share < 0.999:
+            fail(f"{name} metric={metric}: only {share:.6f} of the rows equal")
+        no_invalid_row(name, rows, invalid)
+        log(f"{name} metric={metric}: max|dk|={float(diff.max()):.3g} keys "
+            f"bit-equal {bits:.6f} rows equal {share:.6f}")
+        if metric == 2:
+            timing = (
+                median_ms(lambda: ps.lane_topk_scan_packed(*args), 10),
+                median_ms(lambda: ps.lane_topk_scan_packed_plain(
+                    qb, base, bsq, invalid, metric), 2),
+                median_ms(lambda: torch.matmul(qb, base.T), 10),
+            )
+    # f32 queries, bf16 base, norms and mask in; keys and rows out
+    nbytes = 4 * FLAT_B * DIM + 2 * FLAT_N * DIM + 8 * FLAT_N + 16 * FLAT_B * 1024
+    bound = bound_ms(2.0 * FLAT_B * FLAT_N * DIM, "bf16", nbytes)
+    log_timing(name, "matmul", timing, bound)
+    return worst, timing, bound
+
+
+def check_lane_int8(dev, inputs):
+    import torch
+
+    from scintirete_tpu_torch.ops import packed_scan as ps
+
+    name = "lane_topk_scan_int8"
+    q, base32, invalid = inputs
+    worst, timing = 0.0, None
+    for metric in (1, 2, 3):
+        qs, b32 = scan_form(q, metric), scan_form(base32, metric)
+        base8, scale = ps.quantize_rows(b32)
+        bsq = (b32 * b32).sum(1)
+        args = (qs, base8, scale, bsq, invalid, metric)
+        d, i = ps.lane_topk_scan_int8(*args)
+        q8, q_scale = ps.quantize_rows(qs)
+
+        def plain():
+            return ps.lane_topk_scan_int8_plain(
+                q8, q_scale, base8, scale, bsq, invalid, metric
+            )
+
+        want_d, want_i = plain()
+        torch.cuda.synchronize()
+        # exact product, no contraction: equal, not merely close
+        err, share = compare(f"{name} metric={metric}", d, i, want_d, want_i,
+                             atol=0.0, rtol=0.0)
+        worst = max(worst, err)
+        if share < 1.0:
+            fail(f"{name} metric={metric}: ids differ from the plain version")
+        no_invalid_row(name, i, invalid)
+        log(f"{name} metric={metric}: scores and ids equal")
+        if metric == 2:
+            timing = (
+                median_ms(lambda: ps.lane_topk_scan_int8(*args), 10),
+                median_ms(plain, 2),
+                int_mm_ms(q8, base8),
+            )
+    nbytes = 4 * FLAT_B * DIM + FLAT_N * DIM + 12 * FLAT_N + 16 * FLAT_B * 1024
+    bound = bound_ms(2.0 * FLAT_B * FLAT_N * DIM, "int8", nbytes)
+    log_timing(name, "torch._int_mm", timing, bound)
+    return worst, timing, bound
+
+
+def check_lane_flat(dev, inputs):
+    import torch
+
+    from scintirete_tpu_torch.ops import packed_scan as ps
+
+    name = "lane_topk_scan"
+    q, base32, invalid = inputs
+    worst, timing = 0.0, None
+    for metric in (1, 2, 3):
+        qs, b32 = scan_form(q, metric), scan_form(base32, metric)
+        base = b32.to(torch.bfloat16)
+        qb = qs.to(torch.bfloat16)
+        bsq = (b32 * b32).sum(1)
+        args = (qs, base, bsq, invalid, metric)
+        d, i = ps.lane_topk_scan(*args)
+        want_d, want_i = ps.lane_topk_scan_plain(qb, base, bsq, invalid, metric)
+        torch.cuda.synchronize()
+        err, share = compare(f"{name} metric={metric}", d, i, want_d, want_i,
+                             atol=1e-4, rtol=1e-5)
+        worst = max(worst, err)
+        no_invalid_row(name, i, invalid)
+        log(f"{name} metric={metric}: max|dd|={err:.3g} ids equal {share:.6f}")
+        if metric == 2:
+            timing = (
+                median_ms(lambda: ps.lane_topk_scan(*args), 10),
+                median_ms(lambda: ps.lane_topk_scan_plain(
+                    qb, base, bsq, invalid, metric), 2),
+                median_ms(lambda: torch.matmul(qb, base.T), 10),
+            )
+    nbytes = 4 * FLAT_B * DIM + 2 * FLAT_N * DIM + 8 * FLAT_N + 16 * FLAT_B * 1024
+    bound = bound_ms(2.0 * FLAT_B * FLAT_N * DIM, "bf16", nbytes)
+    log_timing(name, "matmul", timing, bound)
+    return worst, timing, bound
+
+
 def make_dataset(rng, n, n_queries):
     """Workload v2 (bench.py's generator): cluster centers + per-point
     noise; queries are perturbed near-duplicates of base points. Returns
@@ -440,12 +712,14 @@ def run_main_path(dev, n, n_queries, seed):
         fail("a deleted id came back from search")
     valid = np.ones(n, bool)
     valid[np.asarray(del_ids) - 1] = False
-    rec_del = recall_of(results, ground_truth(dev, queries, base, valid, 2))
+    true_after = ground_truth(dev, queries, base, valid, 2)
+    rec_del = recall_of(results, true_after)
     log(f"after deleting {len(del_ids)} ids: recall@10 {rec_del:.4f} "
         f"against the survivors, no deleted id returned")
     if rec_del < RECALL_GATE:
         fail(f"recall@10 after delete {rec_del:.4f} < {RECALL_GATE}")
-    return launches, col, base, valid, centers, rng
+    flat_case = (queries, true_i, del_ids, true_after)
+    return launches, col, base, valid, centers, rng, flat_case
 
 
 def check_results(results, n_want):
@@ -558,6 +832,174 @@ def run_chunked(dev, seed):
     return per_batch
 
 
+def check_flat_results(name, ids, dists, queries, base, truth, gone=()):
+    """ids u64 [B, K], dists f32 [B, K] of a flat search: recall@10
+    against the brute force, every distance the exact cosine distance of
+    its row, ascending, and no deleted id."""
+    from scintirete_tpu_torch.ops.distance import distance_np
+
+    if ids.shape != (len(queries), K) or not np.all(ids > 0):
+        fail(f"{name}: want {K} hits for every query")
+    if not np.all(np.isfinite(dists)) or np.any(np.diff(dists, axis=1) < 0):
+        fail(f"{name}: distances must be finite and ascending")
+    rows = ids.astype(np.int64) - 1
+    rec = float(np.mean([
+        len(set(r.tolist()) & set(t.tolist())) / K for r, t in zip(rows, truth)
+    ]))
+    worst = 0.0
+    for b in range(len(queries)):
+        exact = distance_np(queries[b : b + 1], base[rows[b]], 2)[0]
+        worst = max(worst, float(np.abs(exact - dists[b]).max()))
+    if gone and np.isin(ids, np.fromiter(gone, np.uint64, len(gone))).any():
+        fail(f"{name}: a deleted id came back from search")
+    if rec < FLAT_RECALL_GATE:
+        fail(f"{name}: recall@10 {rec:.4f} < {FLAT_RECALL_GATE}")
+    if worst > FLAT_DIST_TOL:
+        fail(f"{name}: a distance is off its exact value by {worst:.3g}")
+    return rec, worst
+
+
+def timed_flat_searches(name, search_batch, search_arrays, queries):
+    """Batches of 1024 through the tuple surface and one call of all the
+    queries through the array surface: (ids, dists) of each, and QPS."""
+    import torch
+
+    search_batch(queries[:BATCH])  # first search: the mirror's upload
+    torch.cuda.synchronize()
+    hits, per_batch = [], []
+    full_passes = gc.get_stats()[2]["collections"]
+    for s in range(0, len(queries), BATCH):
+        t0 = time.perf_counter()
+        hits.extend(search_batch(queries[s : s + BATCH]))
+        per_batch.append(time.perf_counter() - t0)
+    full_passes = gc.get_stats()[2]["collections"] - full_passes
+    qps_batch = len(queries) / sum(per_batch)
+    log(f"{name}: seconds per batch of {BATCH} "
+        + " ".join(f"{t:.4f}" for t in per_batch)
+        + f" ({full_passes} full passes of Python's collector among them)")
+    t0 = time.perf_counter()
+    ids_a, dists_a = search_arrays(queries)
+    qps_all = len(queries) / (time.perf_counter() - t0)
+    if any(len(h) != K for h in hits):
+        fail(f"{name}: want {K} hits for every query")
+    ids_t = np.asarray([[vid for vid, _ in h] for h in hits], np.uint64)
+    dists_t = np.asarray([[d for _, d in h] for h in hits], np.float32)
+    if not np.array_equal(ids_t, ids_a):
+        fail(f"{name}: search_batch and search_batch_arrays return other ids")
+    if np.abs(dists_t - dists_a).max() > 1e-6:
+        fail(f"{name}: search_batch and search_batch_arrays return other distances")
+    return ids_a, dists_a, qps_batch, qps_all
+
+
+def run_flat(dev, base, flat_case):
+    """The flat index at full size, through the engine (int8 scan copy)
+    and through FlatIndex(scan_dtype="bfloat16") directly."""
+    import torch
+
+    from scintirete_tpu_torch import (
+        CollectionConfig,
+        DistanceMetric,
+        SearchParams,
+    )
+    from scintirete_tpu_torch.engine import Engine
+    from scintirete_tpu_torch.index.flat import FlatIndex
+    from scintirete_tpu_torch.ops.packed_scan import (
+        lane_topk_scan,
+        lane_topk_scan_int8,
+        lane_topk_scan_packed,
+        lane_topk_scan_packed_int8,
+    )
+
+    queries, true_i, del_ids, true_after = flat_case
+    n = len(base)
+    sp = SearchParams(top_k=K)
+    gone = set(del_ids)
+    scans = (lane_topk_scan_packed_int8, lane_topk_scan_packed,
+             lane_topk_scan_int8, lane_topk_scan)
+    for op in scans:
+        op.launches = 0
+
+    col = Engine(device=dev).create_database("flat").create_collection(
+        CollectionConfig(name="c", metric=DistanceMetric.COSINE,
+                         index_type="flat")
+    )
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ids = col.insert([(v, None) for v in base])
+    insert_s = time.perf_counter() - t0
+    if ids != list(range(1, n + 1)):
+        fail("flat insert must assign ids 1..n")
+    t0 = time.perf_counter()
+    col.search_batch(queries[:1], sp)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+
+    def tuples(q):
+        return [[(r.id, r.distance) for r in res]
+                for res in col.search_batch(q, sp)]
+
+    ids_a, dists_a, qps_batch, qps_all = timed_flat_searches(
+        "flat (int8)", tuples, lambda q: col.search_batch_arrays(q, sp),
+        queries,
+    )
+    rec, worst = check_flat_results(
+        "flat (int8)", ids_a, dists_a, queries, base, true_i
+    )
+    if col.delete(del_ids) != len(del_ids):
+        fail("flat delete must tombstone every id once")
+    ids_d, dists_d = col.search_batch_arrays(queries, sp)
+    rec_del, _ = check_flat_results(
+        "flat (int8) after delete", ids_d, dists_d, queries, base, true_after,
+        gone,
+    )
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    launches = {
+        "lane_topk_scan_packed_int8": lane_topk_scan_packed_int8.launches,
+    }
+    log(f"flat n={n} int8 scan copy: insert {insert_s:.2f} s, first search "
+        f"(mirror upload) {upload_s:.2f} s, {qps_batch:.1f} QPS in batches of "
+        f"{BATCH}, {qps_all:.1f} QPS in one batch of {len(queries)}, "
+        f"recall@10 {rec:.4f}, max distance error {worst:.3g}, after "
+        f"deleting {len(del_ids)}: recall@10 {rec_del:.4f} and no deleted id; "
+        f"peak device memory {peak_gb:.2f} GiB, launches {launches}")
+    if launches["lane_topk_scan_packed_int8"] <= 0:
+        fail("lane_topk_scan_packed_int8 was not launched by the flat path")
+    if lane_topk_scan_packed.launches != 0:
+        fail("the int8 flat path must not take the bf16 scan")
+    del col
+
+    idx = FlatIndex(DIM, metric=DistanceMetric.COSINE, device=dev,
+                    scan_dtype="bfloat16")
+    t0 = time.perf_counter()
+    idx.bulk_insert(list(range(1, n + 1)), base)
+    insert_s = time.perf_counter() - t0
+    ids_a, dists_a, qps_batch, qps_all = timed_flat_searches(
+        "flat (bf16)", lambda q: idx.search_batch(q, sp),
+        lambda q: idx.search_batch_arrays(q, sp), queries,
+    )
+    rec, worst = check_flat_results(
+        "flat (bf16)", ids_a, dists_a, queries, base, true_i
+    )
+    for vid in del_ids:
+        idx.delete(vid)
+    ids_d, dists_d = idx.search_batch_arrays(queries, sp)
+    rec_del, _ = check_flat_results(
+        "flat (bf16) after delete", ids_d, dists_d, queries, base, true_after,
+        gone,
+    )
+    # the unpacked scans have no caller on any path, in the JAX package
+    # either: their counts are read like the others and come out 0
+    launches.update({op.__name__: op.launches for op in scans[1:]})
+    log(f"flat n={n} bf16 scan copy: insert {insert_s:.2f} s, "
+        f"{qps_batch:.1f} QPS in batches of {BATCH}, {qps_all:.1f} QPS in "
+        f"one batch of {len(queries)}, recall@10 {rec:.4f}, max distance "
+        f"error {worst:.3g}, after delete recall@10 {rec_del:.4f} and no "
+        f"deleted id; launches {launches['lane_topk_scan_packed']}")
+    if launches["lane_topk_scan_packed"] <= 0:
+        fail("lane_topk_scan_packed was not launched by the bf16 flat path")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="data seed")
@@ -592,7 +1034,14 @@ def main() -> None:
         "knn_lane_topc": check_lane(dev, args.seed),
         "knn_lane_topc_masked": check_lane_masked(dev, args.seed),
     }
-    launches, col, base, valid, centers, rng = run_main_path(
+    flat_inputs = flat_kernel_inputs(dev, args.seed)
+    checks["lane_topk_scan_packed_int8"] = check_packed_int8(dev, flat_inputs)
+    checks["lane_topk_scan_packed"] = check_packed(dev, flat_inputs)
+    checks["lane_topk_scan_int8"] = check_lane_int8(dev, flat_inputs)
+    checks["lane_topk_scan"] = check_lane_flat(dev, flat_inputs)
+    del flat_inputs
+    torch.cuda.empty_cache()
+    launches, col, base, valid, centers, rng, flat_case = run_main_path(
         dev, N_BASE, N_QUERIES, args.seed
     )
     launches["knn_lane_topc_masked"], _ = run_append(
@@ -600,11 +1049,16 @@ def main() -> None:
     )
     del col
     run_chunked(dev, args.seed)
+    launches.update(run_flat(dev, base, flat_case))
 
     meta = {
         "pivot_entry_scan": ("pivot_scan.cu", "pallas_pivot.py:77"),
         "knn_lane_topc": ("lane_scan.cu", "pallas_scan.py:642"),
         "knn_lane_topc_masked": ("lane_scan.cu", "pallas_scan.py:561"),
+        "lane_topk_scan_packed_int8": ("flat_scan.cu", "pallas_scan.py:396"),
+        "lane_topk_scan_packed": ("flat_scan.cu", "pallas_scan.py:335"),
+        "lane_topk_scan_int8": ("flat_scan.cu", "pallas_scan.py:746"),
+        "lane_topk_scan": ("lane_scan.cu", "pallas_scan.py:819"),
     }
     kernels = []
     for name, (err, ms, bound) in checks.items():

@@ -20,6 +20,9 @@ class TPUConfig:
     build_chunk_size: int = 1024
     # max concurrent queries fused into one device search dispatch
     search_batch_size: int = 256
+    # flat index: narrow (bf16 / int8) full-corpus first pass + exact f32
+    # rerank; returned distances stay f32-exact
+    flat_fast_scan: bool = True
     # collections smaller than this search on the host; 0 = always device
     device_search_min_size: int = 4096
     # number of devices to shard large collections over (1 = single card)

@@ -11,7 +11,12 @@
 //   layer 0 and every upper layer, over one cached full base. Entry
 //   scnt_knn_lane_scan_masked; rows >= N also count as masked, so N need
 //   not be a multiple of 1024.
-// Both entries launch ONE templated kernel body (same register budget);
+// - lane_topk_scan (body _lane_scan_kernel): the unpacked bf16 scan of the
+//   flat index. Its body is _knn_lane_kernel_masked without the self
+//   exclusion, so entry scnt_lane_topk_scan launches the masked mode with
+//   no self rows (self_idx = nullptr) and writes best and second best side
+//   by side into [B, 2048] outputs (row stride 2048).
+// All entries launch ONE templated kernel body (same register budget);
 // the mask mode is the template argument. The wrappers keep the Pallas
 // wrappers' tail: the exact top-c of the 2048 lane winners and the
 // finalization.
@@ -53,12 +58,13 @@ constexpr int kLanes = 1024;
 template <bool kMasked>
 __global__ void __launch_bounds__(THREADS)
 knn_lane_kernel(const uint16_t* __restrict__ q,      // [B, D] bf16 bits
-                const int* __restrict__ self_idx,    // [B]
+                const int* __restrict__ self_idx,    // [B] or nullptr
                 const uint16_t* __restrict__ base,   // [N, D] bf16 bits
                 const float* __restrict__ bsq,       // [N]
                 const float* __restrict__ invalid,   // [N] (kMasked)
                 float* __restrict__ d1o, int* __restrict__ i1o,  // [B, 1024]
                 float* __restrict__ d2o, int* __restrict__ i2o,
+                int64_t ostride,  // output row stride, >= 1024
                 int B, int D, int64_t N, int n_valid, int grid_tiles,
                 int metric, bool aligned) {
   __shared__ __align__(16) float sq[KC][TQ];
@@ -73,7 +79,7 @@ knn_lane_kernel(const uint16_t* __restrict__ q,      // [B, D] bf16 bits
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int b = q0 + ty * 4 + i;
-    self_row[i] = b < B ? self_idx[b] : -1;
+    self_row[i] = self_idx != nullptr && b < B ? self_idx[b] : -1;
   }
   float d1[4][4], d2[4][4];
   int i1[4][4], i2[4][4];
@@ -122,7 +128,7 @@ knn_lane_kernel(const uint16_t* __restrict__ q,      // [B, D] bf16 bits
     if (b >= B) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int64_t o = static_cast<int64_t>(b) * kLanes + lane0 + tx * 4 + j;
+      const int64_t o = static_cast<int64_t>(b) * ostride + lane0 + tx * 4 + j;
       d1o[o] = d1[i][j]; i1o[o] = i1[i][j];
       d2o[o] = d2[i][j]; i2o[o] = i2[i][j];
     }
@@ -132,8 +138,9 @@ knn_lane_kernel(const uint16_t* __restrict__ q,      // [B, D] bf16 bits
 template <bool kMasked>
 int launch(const void* q, const void* self_idx, const void* base,
            const void* bsq, const void* invalid, void* d1, void* i1, void* d2,
-           void* i2, int B, int D, long long N, int n_valid, int grid_tiles,
-           int metric, int aligned, void* stream) {
+           void* i2, long long ostride, int B, int D, long long N,
+           int n_valid, int grid_tiles, int metric, int aligned,
+           void* stream) {
   if (B <= 0) return 0;
   dim3 grid(kLanes / TB, (B + TQ - 1) / TQ);
   knn_lane_kernel<kMasked>
@@ -142,7 +149,8 @@ int launch(const void* q, const void* self_idx, const void* base,
           static_cast<const uint16_t*>(base), static_cast<const float*>(bsq),
           static_cast<const float*>(invalid), static_cast<float*>(d1),
           static_cast<int*>(i1), static_cast<float*>(d2),
-          static_cast<int*>(i2), B, D, static_cast<int64_t>(N), n_valid,
+          static_cast<int*>(i2), static_cast<int64_t>(ostride), B, D,
+          static_cast<int64_t>(N), n_valid,
           grid_tiles, metric, aligned != 0);
   return static_cast<int>(cudaGetLastError());
 }
@@ -155,8 +163,9 @@ extern "C" int scnt_knn_lane_scan(const void* q, const void* self_idx,
                                   int B, int D, long long N, int n_valid,
                                   int grid_tiles, int metric, int aligned,
                                   void* stream) {
-  return launch<false>(q, self_idx, base, bsq, nullptr, d1, i1, d2, i2, B, D,
-                       N, n_valid, grid_tiles, metric, aligned, stream);
+  return launch<false>(q, self_idx, base, bsq, nullptr, d1, i1, d2, i2,
+                       kLanes, B, D, N, n_valid, grid_tiles, metric, aligned,
+                       stream);
 }
 
 extern "C" int scnt_knn_lane_scan_masked(const void* q, const void* self_idx,
@@ -166,6 +175,23 @@ extern "C" int scnt_knn_lane_scan_masked(const void* q, const void* self_idx,
                                          int D, long long N, int grid_tiles,
                                          int metric, int aligned,
                                          void* stream) {
-  return launch<true>(q, self_idx, base, bsq, invalid, d1, i1, d2, i2, B, D,
-                      N, 0, grid_tiles, metric, aligned, stream);
+  return launch<true>(q, self_idx, base, bsq, invalid, d1, i1, d2, i2,
+                      kLanes, B, D, N, 0, grid_tiles, metric, aligned,
+                      stream);
+}
+
+// d / i: [B, 2048], best in columns [0, 1024), second best in [1024, 2048).
+// The argument list is that of the flat_scan.cu entries, so one wrapper
+// launches all four flat scans; the scale pointers and the group size
+// belong to the int8 scans and are not read here.
+extern "C" int scnt_lane_topk_scan(const void* q, const void* /*qs*/,
+                                   const void* base, const void* /*bs*/,
+                                   const void* bsq, const void* invalid,
+                                   void* d, void* i, int B, int D,
+                                   long long N, int grid_tiles, int /*group*/,
+                                   int metric, int aligned, void* stream) {
+  return launch<true>(q, nullptr, base, bsq, invalid, d,
+                      i, static_cast<float*>(d) + kLanes,
+                      static_cast<int*>(i) + kLanes, 2 * kLanes, B, D, N, 0,
+                      grid_tiles, metric, aligned, stream);
 }

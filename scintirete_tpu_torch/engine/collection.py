@@ -1,6 +1,7 @@
-"""Collection: a named vector set backed by one HNSW index. Port of
-`scintirete_tpu/engine/collection.py` onto the port's `HNSWIndex`; the
-collection passes its torch `device` down to the index.
+"""Collection: a named vector set backed by one index, HNSW or flat
+(`config.index_type`). Port of `scintirete_tpu/engine/collection.py` onto
+the port's `HNSWIndex` and `FlatIndex`; the collection passes its torch
+`device` down to the index.
 
 Capability parity with the reference's Collection
 (reference: internal/core/database/collection.go:18-412): server-side
@@ -43,11 +44,6 @@ class Collection:
     def __init__(self, config: CollectionConfig, use_device: bool = True,
                  tpu_config=None, device="cuda"):
         config.validate()
-        if config.index_type == "flat":
-            raise NotImplementedError(
-                "index_type='flat' is not ported yet: ROADMAP.md Queue 1, "
-                "flat item (ops/flat_scan.py and index/flat.py)"
-            )
         if tpu_config is not None and tpu_config.shard_devices > 1:
             raise NotImplementedError(
                 "shard_devices > 1 is not ported yet: ROADMAP.md Queue 1, "
@@ -83,7 +79,28 @@ class Collection:
             self._dim = dim
         return self._index
 
+    def _flat_kwargs(self) -> dict[str, Any]:
+        """The serving knobs a flat index takes from the `[tpu]` config."""
+        if self._tpu is None:
+            return {}
+        return dict(
+            search_batch_size=self._tpu.search_batch_size,
+            fast_scan=self._tpu.flat_fast_scan,
+        )
+
     def _new_index(self, dim: int):
+        if self.config.index_type == "flat":
+            from scintirete_tpu_torch.index.flat import FlatIndex
+
+            return FlatIndex(
+                dim=dim,
+                params=self.config.hnsw,
+                metric=self.config.metric,
+                device_dtype=self.config.device_dtype,
+                use_device=self._use_device,
+                device=self.device,
+                **self._flat_kwargs(),
+            )
         kwargs = {}
         if self._tpu is not None:
             kwargs = dict(
@@ -223,7 +240,9 @@ class Collection:
                     np.int64,
                     len(live_ids),
                 )
-                new_index.bulk_insert(live_ids, old.store.vectors[slots].copy())
+                # an HNSW index keeps its rows in its store, a flat one itself
+                arrays = getattr(old, "store", old).vectors
+                new_index.bulk_insert(live_ids, arrays[slots].copy())
             with self._rw.write():
                 self._index = new_index
                 live_set = set(live_ids)
@@ -388,15 +407,24 @@ class Collection:
             )
         graph = state.get("graph")
         if graph is not None:
-            if graph.get("kind") == "flat" or graph.get("sharded"):
+            if graph.get("sharded"):
                 raise NotImplementedError(
-                    "restoring a flat or sharded collection is not ported "
-                    "yet: ROADMAP.md Queue 1, flat and sharding items"
+                    "restoring a sharded collection is not ported yet: "
+                    "ROADMAP.md Queue 1, sharding item"
                 )
-            col._index = HNSWIndex.import_graph_state(
-                graph, device_dtype=config.device_dtype,
-                use_device=use_device, device=device, **hnsw_kw,
-            )
+            if graph.get("kind") == "flat":
+                from scintirete_tpu_torch.index.flat import FlatIndex
+
+                col._index = FlatIndex.import_graph_state(
+                    graph, device_dtype=config.device_dtype,
+                    use_device=use_device, device=device,
+                    **col._flat_kwargs(),
+                )
+            else:
+                col._index = HNSWIndex.import_graph_state(
+                    graph, device_dtype=config.device_dtype,
+                    use_device=use_device, device=device, **hnsw_kw,
+                )
             col._dim = col._index.dim
         col._next_id = int(state["next_id"])
         col._deleted_count = int(state.get("deleted_count", 0))

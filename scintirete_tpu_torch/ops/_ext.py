@@ -42,6 +42,19 @@ SIGNATURES = {
         "lane_scan", "scnt_knn_lane_scan_masked",
         [_P] * 9 + [_I, _I, _LL, _I, _I, _I, _P],
     ),
+    # the four flat scans share one argument list
+    **{
+        entry: (
+            lib, f"scnt_{entry}",
+            [_P] * 8 + [_I, _I, _LL, _I, _I, _I, _I, _P],
+        )
+        for lib, entry in (
+            ("lane_scan", "lane_topk_scan"),
+            ("flat_scan", "flat_packed_bf16"),
+            ("flat_scan", "flat_packed_int8"),
+            ("flat_scan", "flat_lane_int8"),
+        )
+    },
 }
 LIBRARIES = sorted({lib for lib, _, _ in SIGNATURES.values()})
 

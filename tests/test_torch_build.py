@@ -144,7 +144,8 @@ def test_recall_and_state_crosses_to_jax(built, data):
 def test_unported_paths_raise_before_mutation(built, data):
     """What the port still leaves out raises NotImplementedError naming
     ROADMAP.md, before it changes anything: the descent search entry mode,
-    refine_rounds > 0, the flat index, sharding and AOF replay."""
+    refine_rounds > 0, sharding and AOF replay. The flat index is ported:
+    a flat collection is created."""
     base, _ = data
     port, _ = built
     before = port.export_graph_state()
@@ -164,14 +165,14 @@ def test_unported_paths_raise_before_mutation(built, data):
 
     engine = Engine(device="cpu")
     db = engine.create_database("db")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        db.create_collection(CollectionConfig(name="f", index_type="flat"))
+    flat = db.create_collection(CollectionConfig(name="f", index_type="flat"))
+    assert flat.info().index_type == "flat"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(device="cpu", tpu_config=TPUConfig(shard_devices=2)) \
             .create_database("x").create_collection(CollectionConfig(name="s"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.apply_command({"command_type": "CREATE_DATABASE"})
-    assert db.list_collections() == [] and engine.list_databases() == ["db"]
+    assert db.list_collections() == ["f"] and engine.list_databases() == ["db"]
 
 
 def test_engine_surface_on_cpu(data):
@@ -204,11 +205,12 @@ def test_engine_surface_on_cpu(data):
         h.id for h in col.search(vecs[30], sp)
     ]
     assert engine.stats()["vectors"] == 118
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        db.create_collection(CollectionConfig(name="f", index_type="flat"))
+    flat = db.create_collection(CollectionConfig(name="f", index_type="flat"))
+    flat.insert([(v, None) for v in vecs[:40]])
+    assert flat.search(vecs[7], sp)[0].id == 8
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(device="cpu", tpu_config=TPUConfig(shard_devices=2)) \
             .create_database("x").create_collection(CollectionConfig(name="s"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.apply_command({"command_type": "CREATE_DATABASE"})
-    assert db.list_collections() == ["c"]
+    assert db.list_collections() == ["c", "f"]

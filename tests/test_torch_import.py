@@ -31,6 +31,19 @@ col = Engine(device="cpu").create_database("d").create_collection(
 )
 col.insert([(v, None) for v in base[:300]])
 assert col.search(base[290], SearchParams(top_k=1))[0].id == 291
+# a flat collection (the two-pass route) and a flat index on the fused route
+flat = Engine(device="cpu").create_database("d").create_collection(
+    CollectionConfig(name="f", index_type="flat")
+)
+flat.insert([(v, None) for v in base[:300]])
+assert flat.search(base[290], SearchParams(top_k=1))[0].id == 291
+assert flat.delete([291]) == 1
+assert flat.search(base[290], SearchParams(top_k=1))[0].id != 291
+from scintirete_tpu_torch.index.flat import FlatIndex
+fused = FlatIndex(8, metric=DistanceMetric.L2, device="cpu", fused_min_cap=1024)
+fused.bulk_insert(list(range(1, 2101)), base[:2100])
+assert fused.search(base[2000], SearchParams(top_k=1))[0][0] == 2001
+assert fused._dev["scan"].dtype.is_floating_point is False
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.")
@@ -42,8 +55,9 @@ print("ok")
 
 
 def test_port_builds_and_searches_without_jax():
-    """A build, an append and a chunked insert leave neither jax nor any
-    module of the JAX package in sys.modules."""
+    """A build, an append, a chunked insert and a flat insert, delete and
+    search on both flat routes leave neither jax nor any module of the JAX
+    package in sys.modules."""
     out = subprocess.run(
         [sys.executable, "-c", _SCRIPT], capture_output=True, text=True,
         timeout=120, cwd=Path(__file__).resolve().parents[1],
@@ -66,3 +80,9 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         col.insert([([0.0] * 8, None)])
     assert col.count() == 0
+    flat = Engine().create_database("f").create_collection(
+        CollectionConfig(name="c", index_type="flat")
+    )
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        flat.insert([([0.0] * 8, None)])
+    assert flat.count() == 0
