@@ -38,7 +38,7 @@
 // bytes-per-operation line. The first version here runs the int8 product
 // with __dp4a on the CUDA cores (4 multiply-adds per instruction, exact in
 // s32) and the bf16 product as f32 FMAs on exactly widened inputs, in the
-// block layout of lane_scan.cu: (64 queries) x (64 lanes) per block, each
+// block layout of tile_common.cuh: (64 queries) x (64 lanes) per block, each
 // thread owning 4 x 4 (query, lane) pairs whose running state stays in
 // registers for the whole walk; the [B, N] score matrix never exists. The
 // tensor cores (wgmma on bf16, s8 mma) are the next step, not taken here.

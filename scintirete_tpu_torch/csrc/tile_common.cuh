@@ -1,4 +1,5 @@
-// Shared building blocks of the port's two scan kernels: a 64 x 64 score
+// Shared building blocks of the port's CUDA-core scan kernels (pivot_scan.cu,
+// flat_scan.cu; lane_scan.cu runs on the tensor cores): a 64 x 64 score
 // tile computed by 256 threads on the CUDA cores, each thread owning a
 // 4 x 4 block of (query row, base row) scores accumulated in f32.
 //

@@ -12,10 +12,17 @@ prefix bound (columns >= n_valid) for `knn_lane_topc`, and a per-row f32
 sqrt(s + q^2), cosine 1 + s).
 
 `lane_scan` / `lane_scan_masked` compute the four lane arrays: the CUDA
-kernel (`csrc/lane_scan.cu`, one templated body, two entry points) on
-CUDA tensors, the plain versions `lane_scan_plain` /
-`lane_scan_masked_plain` on CPU tensors. `knn_lane_topc` and
-`knn_lane_topc_masked` are the full wrappers.
+kernel (`csrc/lane_scan.cu`: bf16 wgmma fed by TMA, the fold in the
+epilogue; one templated body, two entry points) on CUDA tensors, the plain
+versions `lane_scan_plain` / `lane_scan_masked_plain` on CPU tensors.
+`knn_lane_topc` and `knn_lane_topc_masked` are the full wrappers.
+
+The kernel's TMA copies need rows of whole 16-byte units (D % 8 == 0 in
+bf16) and 16-byte aligned starts. Callers that keep a scan base make it
+`scan_width(D)` columns wide, zero-padded (`index/knn_build.py`), so the
+main path copies nothing; the wrappers pad any other input (`tma_rows`).
+Zero columns change no dot product and no norm. The fold state keeps
+16-bit tile ids, so one launch scans at most MAX_TILES tiles.
 """
 
 from __future__ import annotations
@@ -30,6 +37,23 @@ _COSINE = int(DistanceMetric.COSINE)
 _IP = int(DistanceMetric.INNER_PRODUCT)
 
 LANES = 1024
+MAX_TILES = 65535  # 16-bit tile ids in the kernel's fold state, 0xffff = empty
+
+
+def scan_width(dim: int) -> int:
+    """Columns of a bf16 scan base for `dim`-wide vectors: `dim` rounded up
+    to a multiple of 8, a whole number of 16-byte units per row."""
+    return -(-dim // 8) * 8
+
+
+def tma_rows(t):
+    """[R, D] bf16 rows as the lane kernel's TMA copies take them (D % 8 ==
+    0, 16-byte aligned start): `t` itself when it is so, else a copy with
+    zero columns appended."""
+    pad = scan_width(t.shape[1]) - t.shape[1]
+    if pad == 0 and t.data_ptr() % 16 == 0:
+        return t
+    return torch.nn.functional.pad(t, (0, pad)) if pad else t.clone()
 
 
 def _fold_best_two(s, si, d1, i1, d2, i2):
@@ -107,10 +131,11 @@ def lane_scan_masked_plain(qb, self_idx, base, base_sq, invalid,
     )
 
 
-def _checked_lane_arrays(qb, self_idx, base, base_sq, metric: int):
+def _checked_lane_arrays(qb, self_idx, base, base_sq, metric: int,
+                         grid_tiles: int):
     """Check the CUDA inputs both scans share. Returns the four empty lane
-    arrays (d1, i1, d2, i2), each [B, LANES], and whether the kernel may
-    take its 16-byte loads."""
+    arrays (d1, i1, d2, i2), each [B, LANES], the queries and the base as
+    the kernel takes them (`tma_rows`), and whether they are so."""
     from scintirete_tpu_torch.ops._ext import check_tensor
 
     B, D = qb.shape
@@ -122,12 +147,20 @@ def _checked_lane_arrays(qb, self_idx, base, base_sq, metric: int):
     check_tensor(base_sq, "base_sq", torch.float32, (N,), dev)
     if metric not in (_L2, _COSINE, _IP):
         raise ValueError(f"unsupported metric code: {metric}")
+    if grid_tiles > MAX_TILES:
+        raise ValueError(
+            f"grid_tiles={grid_tiles} exceeds the kernel's {MAX_TILES} tiles "
+            f"({MAX_TILES * LANES} rows)"
+        )
     d = [torch.empty((B, LANES), dtype=torch.float32, device=dev)
          for _ in range(2)]
     i = [torch.empty((B, LANES), dtype=torch.int32, device=dev)
          for _ in range(2)]
-    aligned = D % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (qb, base))
-    return (d[0], i[0], d[1], i[1]), aligned
+    qb, base = tma_rows(qb), tma_rows(base)
+    aligned = qb.shape[1] % 8 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (qb, base)
+    )
+    return (d[0], i[0], d[1], i[1]), qb, base, aligned
 
 
 def lane_scan(qb, self_idx, base, base_sq, n_valid: int, metric: int,
@@ -135,7 +168,7 @@ def lane_scan(qb, self_idx, base, base_sq, n_valid: int, metric: int,
     """Lane arrays (d1, i1, d2, i2), each [B, LANES]: the body of the
     Pallas call. qb [B, D] bf16, self_idx [B] i32, base [N, D] bf16 with
     N % LANES == 0 and grid_tiles * LANES <= N, base_sq [N] f32."""
-    B, D = qb.shape
+    B = qb.shape[0]
     N = base.shape[0]
     if N % LANES or not 0 <= grid_tiles <= N // LANES:
         raise ValueError(
@@ -150,13 +183,13 @@ def lane_scan(qb, self_idx, base, base_sq, n_valid: int, metric: int,
         raise ValueError(f"lane_scan: unsupported device {qb.device}")
     from scintirete_tpu_torch.ops._ext import kernel
 
-    (d1, i1, d2, i2), aligned = _checked_lane_arrays(
-        qb, self_idx, base, base_sq, metric
+    (d1, i1, d2, i2), qb, base, aligned = _checked_lane_arrays(
+        qb, self_idx, base, base_sq, metric, grid_tiles
     )
     err = kernel("lane_scan")(
         qb.data_ptr(), self_idx.data_ptr(), base.data_ptr(),
         base_sq.data_ptr(), d1.data_ptr(), i1.data_ptr(), d2.data_ptr(),
-        i2.data_ptr(), B, D, N, int(n_valid), grid_tiles, metric,
+        i2.data_ptr(), B, qb.shape[1], N, int(n_valid), grid_tiles, metric,
         int(aligned), torch.cuda.current_stream(qb.device).cuda_stream,
     )
     if err != 0:
@@ -174,7 +207,7 @@ def lane_scan_masked(qb, self_idx, base, base_sq, invalid, metric: int,
     the body of the masked Pallas call. qb [B, D] bf16, self_idx [B] i32
     (-1 = no exclusion), base [N, D] bf16 (any N), base_sq [N] f32,
     invalid [N] f32 (> 0.5 = masked), grid_tiles * LANES < N + LANES."""
-    B, D = qb.shape
+    B = qb.shape[0]
     N = base.shape[0]
     if not 0 <= grid_tiles <= -(-N // LANES):
         raise ValueError(
@@ -190,13 +223,13 @@ def lane_scan_masked(qb, self_idx, base, base_sq, invalid, metric: int,
     from scintirete_tpu_torch.ops._ext import check_tensor, kernel
 
     check_tensor(invalid, "invalid", torch.float32, (N,), qb.device)
-    (d1, i1, d2, i2), aligned = _checked_lane_arrays(
-        qb, self_idx, base, base_sq, metric
+    (d1, i1, d2, i2), qb, base, aligned = _checked_lane_arrays(
+        qb, self_idx, base, base_sq, metric, grid_tiles
     )
     err = kernel("lane_scan_masked")(
         qb.data_ptr(), self_idx.data_ptr(), base.data_ptr(),
         base_sq.data_ptr(), invalid.data_ptr(), d1.data_ptr(), i1.data_ptr(),
-        d2.data_ptr(), i2.data_ptr(), B, D, N, grid_tiles, metric,
+        d2.data_ptr(), i2.data_ptr(), B, qb.shape[1], N, grid_tiles, metric,
         int(aligned), torch.cuda.current_stream(qb.device).cuda_stream,
     )
     if err != 0:

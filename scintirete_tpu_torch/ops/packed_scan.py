@@ -37,7 +37,12 @@ from __future__ import annotations
 
 import torch
 
-from scintirete_tpu_torch.ops.lane_scan import LANES, _fold_best_two
+from scintirete_tpu_torch.ops.lane_scan import (
+    LANES,
+    MAX_TILES,
+    _fold_best_two,
+    tma_rows,
+)
 from scintirete_tpu_torch.types import DistanceMetric
 
 _L2 = int(DistanceMetric.L2)
@@ -423,7 +428,9 @@ lane_topk_scan_int8.launches = 0
 def lane_topk_scan(queries, base, base_sq, invalid, metric: int):
     """Unpacked bf16 lane scan: (scores [B, 2 LANES] ranking form, rows
     [B, 2 LANES] i32, -1 / +inf = empty). queries [B, D] f32, base [N, D]
-    bf16 with N % LANES == 0, base_sq / invalid [N] f32."""
+    bf16 with N % LANES == 0, base_sq / invalid [N] f32. On the card the
+    kernel is the graph-build scans' (`lane_scan.tma_rows` pads a D that is not
+    a multiple of 8)."""
     name = "lane_topk_scan"
     N = base.shape[0]
     _check_scan_shape(name, N)
@@ -431,9 +438,16 @@ def lane_topk_scan(queries, base, base_sq, invalid, metric: int):
     qb = queries.float().to(torch.bfloat16).contiguous()
     if _device_kind(qb, name) == "cpu":
         return lane_topk_scan_plain(qb, base, base_sq, invalid, metric)
+    if N // LANES > MAX_TILES:
+        raise ValueError(f"{name}: more than {MAX_TILES} tiles of {LANES} rows")
+    if base.dtype != torch.bfloat16 or base.shape[1] != qb.shape[1]:
+        raise ValueError(
+            f"{name}: want a bf16 base of {qb.shape[1]} columns, got "
+            f"{base.dtype} {tuple(base.shape)}"
+        )
     d, i = _launch_flat(
-        "lane_topk_scan", name, qb, None, base, None, base_sq, invalid,
-        metric, 1, 8,
+        "lane_topk_scan", name, tma_rows(qb), None, tma_rows(base), None,
+        base_sq, invalid, metric, 1, 8,
     )
     lane_topk_scan.launches += 1
     return d, i

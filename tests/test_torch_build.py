@@ -214,3 +214,28 @@ def test_engine_surface_on_cpu(data):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engine.apply_command({"command_type": "CREATE_DATABASE"})
     assert db.list_collections() == ["c", "f"]
+
+
+def test_padded_scan_base_leaves_the_build_unchanged(monkeypatch):
+    """The build's scan base is zero-padded to a multiple of 8 columns
+    (what the card's TMA copies take). At D = 20 the graph is the same with
+    the padding (24 columns) and without it."""
+    from scintirete_tpu_torch.index import knn_build
+    from scintirete_tpu_torch.index.store import GraphStore
+
+    vecs = np.random.default_rng(7).standard_normal((1200, 20)).astype(np.float32)
+    ctx = knn_build._make_build_ctx(vecs, int(DistanceMetric.L2), "cpu")
+    assert tuple(ctx["base"].shape) == (2048, 24)
+
+    def graph():
+        store = GraphStore(20, PARAMS, DistanceMetric.L2)
+        knn_build.build(store, vecs, "cpu")
+        return store
+
+    padded = graph()
+    monkeypatch.setattr(knn_build, "scan_width", lambda dim: dim)
+    plain = graph()
+    np.testing.assert_array_equal(padded.neighbors0, plain.neighbors0)
+    assert len(padded.layers) == len(plain.layers)
+    for a, b in zip(padded.layers, plain.layers):
+        np.testing.assert_array_equal(a.nbrs, b.nbrs)

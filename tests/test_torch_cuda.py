@@ -7,12 +7,14 @@ JAX, so leave it out):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 They cover the shapes the main-path check (chip_smoke.py) does not: a
-ragged pivot count, depths that are not a multiple of 8 (the kernels'
-unvectorized loads), query counts that are not a multiple of the 64-row
-tile, a masked scan over a ragged base and one with every row masked,
-the four flat scans at odd shapes, with every row masked and with
-overflowed norms, and a small build, append, search and flat collection on
-the card.
+ragged pivot count, depths that are not a multiple of 8 (the CUDA-core
+kernels' unvectorized loads; the lane kernel's zero padding), depths the
+lane kernel streams through its ring (D = 768), query counts that are not
+a multiple of the 64- or 128-row tiles (B = 1, 65), a single tile, a masked
+scan over a ragged base and one with every row masked, exact ties that the
+lane fold must break in tile order, the four flat scans at odd shapes,
+with every row masked and with overflowed norms, and a small build,
+append, search and flat collection on the card.
 """
 
 import numpy as np
@@ -57,6 +59,9 @@ def test_pivot_kernel_matches_plain(dev, metric, B, R, D):
 @pytest.mark.parametrize("metric", [1, 2, 3])
 @pytest.mark.parametrize("B,N,D,n_valid,tiles", [
     (64, 2048, 16, 2048, 2), (300, 4096, 40, 3000, 3), (129, 3072, 128, 1, 1),
+    (1, 2048, 100, 1500, 2),  # one query; D padded to 104
+    (65, 3072, 768, 3072, 3),  # queries streamed through the ring
+    (65, 2048, 100, 2048, 1),  # one tile
 ])
 def test_lane_kernel_matches_plain(dev, metric, B, N, D, n_valid, tiles):
     from scintirete_tpu_torch.ops.lane_scan import lane_scan, lane_scan_plain
@@ -84,6 +89,9 @@ def test_lane_kernel_matches_plain(dev, metric, B, N, D, n_valid, tiles):
     (64, 2048, 16, 2, "random"),  # aligned N, random mask
     (300, 3000, 40, 3, "random"),  # ragged N: rows past N are masked
     (129, 2500, 128, 3, "all"),  # every row masked
+    (1, 3000, 100, 3, "random"),  # one query; D padded to 104
+    (65, 2500, 768, 3, "random"),  # queries streamed through the ring
+    (65, 2048, 128, 1, "random"),  # one tile
 ])
 def test_masked_lane_kernel_matches_plain(dev, metric, B, N, D, tiles, mask):
     from scintirete_tpu_torch.ops.lane_scan import (
@@ -125,6 +133,57 @@ def test_masked_lane_kernel_matches_plain(dev, metric, B, N, D, tiles, mask):
         assert not bool(ok.any()) and bool(torch.isinf(cd).all())
 
 
+def _tied_base(dev, seed, D=40, tiles=4):
+    """Small-integer rows (every product and sum is exact in f32, in any
+    order), each tile a copy of the first with a third of its rows
+    redrawn: rows r and r + 1024 k of one lane tie exactly."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    base32 = torch.randint(-2, 3, (1024, D), generator=g, device=dev).float()
+    base32 = base32.repeat(tiles, 1)
+    redraw = torch.rand(tiles * 1024, generator=g, device=dev) < 0.3
+    redraw[:1024] = False
+    base32[redraw] = torch.randint(
+        -2, 3, (int(redraw.sum()), D), generator=g, device=dev
+    ).float()
+    return base32
+
+
+@pytest.mark.parametrize("metric", [1, 2, 3])
+def test_lane_kernels_break_ties_in_tile_order(dev, metric):
+    """Exact ties: the strict-< fold keeps the earlier tile's row. With
+    exact scores the three lane-kernel entries must equal their plain
+    versions exactly, ids included: the prefix and masked graph-build scans
+    (self rows excluded, their copies in other tiles not) and the flat
+    index's [B, 2048] output."""
+    from scintirete_tpu_torch.ops import packed_scan as ps
+    from scintirete_tpu_torch.ops.lane_scan import (
+        lane_scan,
+        lane_scan_masked,
+        lane_scan_masked_plain,
+        lane_scan_plain,
+    )
+
+    base32 = _tied_base(dev, metric)
+    N = base32.shape[0]
+    base = base32.to(torch.bfloat16)
+    bsq = (base32 * base32).sum(1)
+    g = torch.Generator(device=dev).manual_seed(10 + metric)
+    si = torch.randperm(N, generator=g, device=dev)[:65].to(torch.int32)
+    qb = base[si.long()].contiguous()
+    invalid = (torch.rand(N, generator=g, device=dev) < 0.2).float()
+    for k_out, p_out in (
+        (lane_scan(qb, si, base, bsq, N - 100, metric, 4),
+         lane_scan_plain(qb, si, base, bsq, N - 100, metric, 4)),
+        (lane_scan_masked(qb, si, base, bsq, invalid, metric, 4),
+         lane_scan_masked_plain(qb, si, base, bsq, invalid, metric, 4)),
+        (ps.lane_topk_scan(qb.float(), base, bsq, invalid, metric),
+         ps.lane_topk_scan_plain(qb, base, bsq, invalid, metric)),
+    ):
+        torch.cuda.synchronize()
+        for k, p in zip(k_out, p_out):
+            assert torch.equal(k, p)
+
+
 def test_bad_inputs_raise(dev):
     from scintirete_tpu_torch.ops.lane_scan import lane_scan
     from scintirete_tpu_torch.ops.pivot_scan import pivot_entry_scan
@@ -150,6 +209,11 @@ def test_bad_inputs_raise(dev):
         lane_scan_masked(base[:4], torch.arange(4, device=dev, dtype=torch.int32),
                          base, torch.ones(2048, device=dev),
                          torch.zeros(2048, device=dev), 1, 3)
+    # more tiles than the fold state's 16-bit tile ids can name
+    big = torch.empty((65536 * 1024, 8), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        lane_scan(big[:4], torch.arange(4, device=dev, dtype=torch.int32), big,
+                  torch.zeros(big.shape[0], device=dev), 100, 1, 65536)
 
 
 def test_build_and_search_on_the_card(dev):
