@@ -8,9 +8,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
     (nvcc, into build/kernels/) and the C++ link-application library (g++,
     into build/native/), and fails unless the C++ library loaded (so no
     number below comes from its numpy fallback); prints the build seconds,
-    each kernel's registers and spills (-Xptxas -v) and the count of
-    tensor-core instructions (HGMMA) in the lane scan's SASS (cuobjdump),
-    failing if that count is 0;
+    each kernel's registers and spills (-Xptxas -v) and the counts of
+    tensor-core instructions in the SASS (cuobjdump): HGMMA (bf16 wgmma)
+    in the lane scan's, HGMMA and IGMMA (s8 wgmma) in the flat scan's,
+    failing if any of the three is 0;
  3. holds each of the seven kernels against its plain torch version on the
     card, at the shapes of the main path: pivot_entry_scan (B=256, D=128, R=65,536 and a
     ragged R, 3 metrics, deleted pivots, all deleted), knn_lane_topc
@@ -23,9 +24,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
     lane_topk_scan_packed, lane_topk_scan_int8, lane_topk_scan: B=1024,
     N=1,048,576, D=128, 3 metrics, 1% deleted rows and an invalid tail
     past 1,000,000; the int8 scans must equal their plain versions bit for
-    bit, the bf16 ones within the f32 sum-order tolerance;
-    lane_topk_scan_packed_int8 also with one query and with 4,096, the
-    other two batch sizes the flat path launches it at); the two graph-build
+    bit, the bf16 ones within the f32 sum-order tolerance; both packed
+    scans also with one query (the tile walk split into slices) and with
+    4,096, the other two batch sizes the flat path launches them at, and
+    timed at one query too); the two graph-build
     scans also at B=1, at B=1,568 (a ragged round of the build) and with
     one tile on the 1M base, and at D=100 (padded to 104 columns) and
     D=768 (queries streamed) on a 65,536-row base, 3 metrics; prints the
@@ -453,11 +455,25 @@ def no_invalid_row(name, rows, invalid):
         fail(f"{name}: a deleted or empty row came out of the scan")
 
 
-def log_timing(name, what, timing, bound):
+def log_timing(name, what, timing, bound, one_ms=None):
     lib = "no single call" if timing[2] is None else f"{timing[2]:.3f} ms"
+    one = "" if one_ms is None else f", kernel at B=1 {one_ms:.4f} ms"
     log(f"{name} B={FLAT_B} N={FLAT_N} D={DIM} cosine: kernel "
         f"{timing[0]:.3f} ms, plain {timing[1]:.3f} ms, {what} {lib}, "
-        f"bound {bound[0]:.4f} ms ({bound[1]})")
+        f"bound {bound[0]:.4f} ms ({bound[1]}){one}")
+
+
+def other_batches(dev, metric):
+    """The flat path's other two batch sizes for one launch: all 4,096
+    queries (a grid four times deeper, one slice) and one query (127
+    padded rows in its block; the tile walk split into slices)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(4096)
+    q_all = scan_form(
+        torch.randn(N_QUERIES, DIM, generator=g, device=dev), metric
+    )
+    return q_all, (N_QUERIES, 1)
 
 
 def int_mm_ms(q8, base8):
@@ -514,18 +530,14 @@ def check_packed_int8(dev, inputs):
                     median_ms(plain, 2),
                     int_mm_ms(q8, base8),
                 )
-                # the flat path also launches this scan with one query
-                # (a block with 63 padded query rows) and with all 4,096
-                # (a grid four times deeper): same base, cosine, bit for bit
-                g = torch.Generator(device=dev).manual_seed(4096)
-                q_all = scan_form(
-                    torch.randn(N_QUERIES, DIM, generator=g, device=dev), metric
-                )
+                # the flat path's other batch sizes: same base, cosine,
+                # bit for bit
+                q_all, sizes = other_batches(dev, metric)
                 want = ps.lane_topk_scan_packed_int8_plain(
                     *ps.packed_int8_inputs(q_all, scale, bsq, invalid, metric)[:2],
                     base8, bs, bq, metric, 1,
                 )
-                for b in (N_QUERIES, 1):
+                for b in sizes:
                     keys, rows = ps.lane_topk_scan_packed_int8(
                         q_all[:b], *args[1:]
                     )
@@ -536,10 +548,14 @@ def check_packed_int8(dev, inputs):
                         fail(f"{name} B={b}: rows differ")
                     log(f"{name} metric={metric} B={b}: keys equal bit for "
                         f"bit, rows equal")
+                one_ms = median_ms(
+                    lambda: ps.lane_topk_scan_packed_int8(q_all[:1], *args[1:]),
+                    10,
+                )
     # f32 queries, int8 base, scales, norms and mask in; keys and rows out
     nbytes = 4 * FLAT_B * DIM + FLAT_N * DIM + 12 * FLAT_N + 16 * FLAT_B * 1024
     bound = bound_ms(2.0 * FLAT_B * FLAT_N * DIM, "int8", nbytes)
-    log_timing(name, "torch._int_mm", timing, bound)
+    log_timing(name, "torch._int_mm", timing, bound, one_ms)
     return worst, timing, bound
 
 
@@ -583,10 +599,32 @@ def check_packed(dev, inputs):
                     qb, base, bsq, invalid, metric), 2),
                 median_ms(lambda: torch.matmul(qb, base.T), 10),
             )
+            # the flat path's other batch sizes, held as above
+            q_all, sizes = other_batches(dev, metric)
+            want = ps.lane_topk_scan_packed_plain(
+                q_all.to(torch.bfloat16), base, bsq, invalid, metric
+            )
+            for b in sizes:
+                keys, rows = ps.lane_topk_scan_packed(q_all[:b], *args[1:])
+                diff = (keys - want[:b]).abs()
+                share = float(
+                    (rows == ps.unpack_lane_keys(want[:b])[1]).float().mean()
+                )
+                if (not bool(torch.isfinite(keys).all())
+                        or bool((diff > KEY_RTOL * want[:b].abs() + 1e-30).any())
+                        or share < 0.999):
+                    fail(f"{name} B={b}: max|dk|={float(diff.max())}, rows "
+                         f"equal {share:.6f}")
+                worst = max(worst, float(diff.max()))
+                log(f"{name} metric={metric} B={b}: max|dk|="
+                    f"{float(diff.max()):.3g} rows equal {share:.6f}")
+            one_ms = median_ms(
+                lambda: ps.lane_topk_scan_packed(q_all[:1], *args[1:]), 10
+            )
     # f32 queries, bf16 base, norms and mask in; keys and rows out
     nbytes = 4 * FLAT_B * DIM + 2 * FLAT_N * DIM + 8 * FLAT_N + 16 * FLAT_B * 1024
     bound = bound_ms(2.0 * FLAT_B * FLAT_N * DIM, "bf16", nbytes)
-    log_timing(name, "matmul", timing, bound)
+    log_timing(name, "matmul", timing, bound, one_ms)
     return worst, timing, bound
 
 
@@ -1182,14 +1220,19 @@ def main() -> None:
         for line in open(f"{path}.log"):
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    hgmma = sass_count(paths["lane_scan"], "HGMMA")
-    if hgmma is None:
-        log("lane_scan: no cuobjdump in the toolkit, HGMMA count not taken")
-    else:
-        log(f"lane_scan: {hgmma} HGMMA instructions in its SASS "
-            f"(cuobjdump -sass)")
-        if hgmma == 0:
-            fail("the lane scan kernel has no tensor-core instruction")
+    # tensor-core instructions: bf16 wgmma is HGMMA, s8 wgmma IGMMA
+    for lib, opcodes in (("lane_scan", ("HGMMA",)),
+                         ("flat_scan", ("HGMMA", "IGMMA"))):
+        for opcode in opcodes:
+            count = sass_count(paths[lib], opcode)
+            if count is None:
+                log(f"{lib}: no cuobjdump in the toolkit, {opcode} count "
+                    f"not taken")
+                continue
+            log(f"{lib}: {count} {opcode} instructions in its SASS "
+                f"(cuobjdump -sass)")
+            if count == 0:
+                fail(f"{lib} has no {opcode} instruction")
 
     t0 = time.perf_counter()
     if load_native() is None:

@@ -66,11 +66,11 @@
 // 16-byte aligned rows, which the wrappers arrange (they pad with zero
 // columns, which change no dot product and no norm). Depth past D inside a
 // 64-column box is TMA's out-of-bounds zero fill, as are rows past N.
-#include <cstdint>
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
-#include <cuda_runtime.h>
+#include "hopper_common.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int kL2 = 1;
 constexpr int kLanes = 1024;
@@ -85,6 +85,7 @@ constexpr uint32_t kQueryChunkBytes = kQueryRows * kChunk * 2;  // 16 KB
 constexpr uint32_t kHalfQueryBytes = kQueryChunkBytes / 2;      // one warpgroup's rows
 constexpr uint32_t kNoTile = 0xffffu;
 constexpr int kMaxTiles = 65535;
+constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
 // Dynamic shared memory, byte offsets from a 1024-aligned start (the
 // 128-byte swizzle repeats every 8 rows = 1024 bytes).
@@ -107,107 +108,6 @@ __host__ __device__ inline Layout layout_for(int chunks) {
   L.bars = L.cols + kStages * kTileRows * 4;
   L.total = L.bars + (2 * kStages + 1) * 8;
   return L;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Returns once the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// One 64-column x rows box of a 2-D bf16 tensor map into shared memory;
-// completion is counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col),
-      "r"(row)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile stored as 128-byte rows
-// with the 128-byte swizzle, 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |            // leading offset (unused)
-         (static_cast<uint64_t>(1024 >> 4) << 32) |    // stride offset
-         (static_cast<uint64_t>(1) << 62);             // 128-byte swizzle
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the accumulators across
-// the asynchronous wgmma (it sees only the issuing asm statement).
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d[64 x 64] (+)= A[64 x 16] * B[64 x 16]^T, both K-major in shared memory;
-// scale_d = 0 starts the sum afresh.
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
-                                                uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // kMasked = false: rows >= n_valid are masked (invalid unused).
@@ -414,49 +314,6 @@ lane_scan_kernel(const __grid_constant__ CUtensorMap q_map,  // [B, D] bf16
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so that the
-// library links nothing beyond the runtime.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess && p)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// [rows, D] row-major bf16 in boxes of 64 columns x box_rows rows, 128-byte
-// swizzle, out-of-bounds elements read as zero.
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, long long rows,
-            int D, int box_rows) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * 2};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kChunk),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <bool kMasked>
 int launch(const void* q, const void* self_idx, const void* base,
            const void* bsq, const void* invalid, void* d1, void* i1, void* d2,
@@ -472,8 +329,9 @@ int launch(const void* q, const void* self_idx, const void* base,
   CUtensorMap q_map, b_map;
   // with no tile to scan the base map is never read: describe the queries
   const bool scan = grid_tiles > 0;
-  if (!encode(fn, &q_map, q, B, D, kQueryRows) ||
-      !encode(fn, &b_map, scan ? base : q, scan ? N : B, D, kTileRows))
+  if (!encode(fn, &q_map, kType, 2, q, B, D, kQueryRows) ||
+      !encode(fn, &b_map, kType, 2, scan ? base : q, scan ? N : B, D,
+              kTileRows))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>(layout_for((D + kChunk - 1) / kChunk).total) + 1024;
   cudaError_t err = cudaFuncSetAttribute(

@@ -1,5 +1,6 @@
-// Shared building blocks of the port's CUDA-core scan kernels (pivot_scan.cu,
-// flat_scan.cu; lane_scan.cu runs on the tensor cores): a 64 x 64 score
+// Shared building blocks of the port's CUDA-core scan kernels (pivot_scan.cu
+// and flat_scan.cu's lane_topk_scan_int8; the other scans run on the tensor
+// cores, hopper_common.cuh): a 64 x 64 score
 // tile computed by 256 threads on the CUDA cores, each thread owning a
 // 4 x 4 block of (query row, base row) scores accumulated in f32.
 //

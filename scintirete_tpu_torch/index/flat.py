@@ -53,7 +53,7 @@ from scintirete_tpu_torch.errors import (
 )
 from scintirete_tpu_torch.index.hnsw import resolve_device
 from scintirete_tpu_torch.index.results import assemble_arrays, assemble_results
-from scintirete_tpu_torch.ops.lane_scan import LANES
+from scintirete_tpu_torch.ops.lane_scan import LANES, scan_width
 from scintirete_tpu_torch.types import DistanceMetric, HNSWParams, SearchParams
 from scintirete_tpu_torch.utils.rwlock import RWLock
 
@@ -409,14 +409,18 @@ class FlatIndex:
         t = torch.from_numpy(np.ascontiguousarray(a))
         return t.to(self.device, dtype=dtype, copy=True)
 
-    def _scan_form(self, v: np.ndarray) -> np.ndarray:
+    def _scan_form(self, v: np.ndarray, int8: bool) -> np.ndarray:
         # the lane scan ranks cosine by -dot over pre-normalized rows (zero
         # rows stay zero -> dot 0, consistent with the reference's
         # zero-vector cosine distance of 1.0)
-        if self.metric != DistanceMetric.COSINE:
-            return v
-        n = np.linalg.norm(v, axis=1, keepdims=True)
-        return np.where(n > 1e-30, v / np.maximum(n, 1e-30), 0.0)
+        if self.metric == DistanceMetric.COSINE:
+            n = np.linalg.norm(v, axis=1, keepdims=True)
+            v = np.where(n > 1e-30, v / np.maximum(n, 1e-30), 0.0)
+        # zero columns up to whole 16-byte rows, as the packed scans' TMA
+        # copies take them (no search pads the copy); they change no dot,
+        # norm or int8 scale, and the first pass pads its queries to match
+        pad = scan_width(self.dim, 1 if int8 else 2) - self.dim
+        return np.pad(v, ((0, 0), (0, pad))) if pad else v
 
     def _sync(self) -> None:
         bf16 = self.device_dtype == "bfloat16"
@@ -459,7 +463,7 @@ class FlatIndex:
                 "valid": self._put(valid),
             }
             if two_pass:
-                sf = self._scan_form(vecs)
+                sf = self._scan_form(vecs, use_int8)
                 if use_int8:
                     q8, sc = _quant8(sf)
                     dev["scan"] = self._put(q8)
@@ -485,8 +489,9 @@ class FlatIndex:
             vecs = self.vectors[rows]
             scatter("vectors", vecs)
             if two_pass and "scan" in self._dev:
-                sf = self._scan_form(vecs)
-                if self._dev["scan"].dtype == torch.int8:
+                int8 = self._dev["scan"].dtype == torch.int8
+                sf = self._scan_form(vecs, int8)
+                if int8:
                     q8, sc = _quant8(sf)
                     scatter("scan", q8)
                     scatter("scan_scale", sc)

@@ -42,7 +42,7 @@ SIGNATURES = {
         "lane_scan", "scnt_knn_lane_scan_masked",
         [_P] * 9 + [_I, _I, _LL, _I, _I, _I, _P],
     ),
-    # the four flat scans share one argument list
+    # the two unpacked flat scans share one argument list
     **{
         entry: (
             lib, f"scnt_{entry}",
@@ -50,11 +50,19 @@ SIGNATURES = {
         )
         for lib, entry in (
             ("lane_scan", "lane_topk_scan"),
-            ("flat_scan", "flat_packed_bf16"),
-            ("flat_scan", "flat_packed_int8"),
             ("flat_scan", "flat_lane_int8"),
         )
     },
+    # the packed ones take a workspace and a slice count beside it, and
+    # the int8 one its raw inputs and scratch for preparing them
+    "flat_packed_bf16": (
+        "flat_scan", "scnt_flat_packed_bf16",
+        [_P] * 9 + [_I, _I, _LL, _I, _I, _I, _I, _P],
+    ),
+    "flat_packed_int8": (
+        "flat_scan", "scnt_flat_packed_int8",
+        [_P] * 11 + [_I, _I, _I, _LL, _I, _I, _I, _I, _P],
+    ),
 }
 LIBRARIES = sorted({lib for lib, _, _ in SIGNATURES.values()})
 

@@ -87,6 +87,14 @@ def flat_topk(queries, base, valid, metric: int, k: int,
     return _pad_to_k(top_d, top_i, k)
 
 
+def _pad_cols(q, width: int):
+    """Queries widened with zero columns to a scan copy's `width` (the copy
+    is padded for the scan kernels' TMA); zero columns change no dot and
+    no norm."""
+    pad = width - q.shape[1]
+    return torch.nn.functional.pad(q, (0, pad)) if pad > 0 else q
+
+
 def _rerank(q32, exact_base, ti, metric: int, k: int):
     """Exact f32 distances of the candidate slots ti [B, W] (-1 = empty)
     and the k least of them. The dot is a multiply and a sum, never a
@@ -111,8 +119,9 @@ def flat_topk_fused(queries, scan_base, exact_base, valid, metric: int,
 
     queries [B, D] f32, or f16 / int8 (cast up here: fewer bytes to copy
     to the device; int8 queries come with `query_scale` [B] f32 and are
-    dequantized first). scan_base [N, D] bf16 or int8 (then `base_scale`
-    [N] f32 is required), pre-normalized for cosine, N % LANES == 0;
+    dequantized first). scan_base [N, D'] bf16 or int8 (then `base_scale`
+    [N] f32 is required), pre-normalized for cosine, N % LANES == 0, with
+    D' >= D: columns past D are zero;
     exact_base [N, D] f32 or bf16; valid [N] bool; base_sq_norms [N] f32,
     of the scan-form f32 rows. `tps` groups the int8 scan's tiles (see
     `lane_topk_scan_packed_int8`)."""
@@ -130,6 +139,7 @@ def flat_topk_fused(queries, scan_base, exact_base, valid, metric: int,
         q_scan = torch.where(qn > 1e-30, q32 / torch.clamp(qn, min=1e-30), 0.0)
     else:
         q_scan = q32
+    q_scan = _pad_cols(q_scan, scan_base.shape[1])
     if scan_base.dtype == torch.int8:
         if base_scale is None:
             raise ValueError("an int8 scan copy needs its per-row scales")
@@ -150,12 +160,14 @@ def flat_topk_fused(queries, scan_base, exact_base, valid, metric: int,
 def flat_topk_rerank(queries, scan_base, exact_base, valid, metric: int,
                      k: int, base_sq_norms, width: int = 64,
                      tile: int = _TILE):
-    """Two-pass exact search: `flat_topk` over the bf16 scan copy for a
-    top-`width` candidate pool, then those candidates re-scored against
-    `exact_base` in f32. recall@k is limited only by a true neighbor
-    falling more than width - k bf16 ranks below its f32 rank."""
+    """Two-pass exact search: `flat_topk` over the bf16 scan copy (D' >=
+    D columns, zero past D) for a top-`width` candidate pool, then those
+    candidates re-scored against `exact_base` in f32. recall@k is limited
+    only by a true neighbor falling more than width - k bf16 ranks below
+    its f32 rank."""
     width = min(width, scan_base.shape[0])
     _, ti = flat_topk(
-        queries, scan_base, valid, metric, width, base_sq_norms, tile=tile
+        _pad_cols(queries, scan_base.shape[1]), scan_base, valid, metric,
+        width, base_sq_norms, tile=tile,
     )  # [B, W] candidate slots (-1 padded)
     return _rerank(queries.float(), exact_base, ti, metric, k)

@@ -31,6 +31,14 @@ Each wrapper launches its CUDA kernel (`csrc/flat_scan.cu`;
 `lane_topk_scan` the third entry point of `csrc/lane_scan.cu`) on CUDA
 tensors, and its plain version (`*_plain`, the Pallas body repeated tile by
 tile) on CPU tensors. The kernels take any B.
+
+The two packed kernels run on the tensor cores with operands fed by TMA,
+which wants rows of whole 16-byte units (`lane_scan.scan_width`: D a
+multiple of 8 in bf16, of 16 in int8): callers that keep a scan copy make
+it that wide (`index/flat.py`), and the wrappers pad any other input with
+zero columns, which change no dot, no norm and no int8 scale. Their tile
+walk may be split into slices that run side by side and merge (see
+`_slices`): packed keys never tie, so the merge gives the same bits.
 """
 
 from __future__ import annotations
@@ -70,7 +78,10 @@ def quantize_rows(v: torch.Tensor):
     v ~= q8 * scale[:, None]. Zero rows quantize to zeros with scale 0.
     Rounds half to even, as numpy and JAX do."""
     amax = v.abs().amax(dim=-1, keepdim=True)
-    scale = amax / 127.0
+    # divided by a tensor, not a Python number: on CUDA ATen multiplies by
+    # the rounded reciprocal of a scalar divisor, one unit off the true
+    # quotient that numpy, JAX and the card's int8 scan entry take
+    scale = amax / torch.full((), 127.0, device=amax.device)
     q = torch.where(
         scale > 0.0, torch.round(v / torch.clamp(scale, min=1e-30)), 0.0
     )
@@ -260,29 +271,58 @@ def _check_metric(metric: int) -> None:
         raise ValueError(f"unsupported metric code: {metric}")
 
 
+_SLICE_MAX = 16
+
+
+def _slices(B: int, groups: int, sms: int) -> int:
+    """How many slices to split a packed scan's walk of `groups` tile
+    groups into. A launch is ceil(B / 128) query tiles x 16 lane ranges of
+    blocks, one block per SM at a time; S slices make S times the blocks,
+    each 1/S of the walk, so the launch takes about ceil(blocks S / sms) / S
+    walks. Take the least S with the least such time, and a larger S only
+    where it saves a tenth (each slice adds a pipeline fill and a merge)."""
+    blocks = -(-B // 128) * (LANES // 64)
+    best, best_t = 1, -(-blocks // sms)
+    for s in range(2, min(groups, _SLICE_MAX) + 1):
+        t = -(-blocks * s // sms) / s
+        if t < 0.9 * best_t:
+            best, best_t = s, t
+    return best
+
+
+def _check_inputs(q, base, **arrays) -> None:
+    """A scan's CUDA inputs: contiguous queries, a base of their type and
+    width, and f32 [N] or [B] arrays (None where not read), all on the
+    queries' device."""
+    from scintirete_tpu_torch.ops._ext import check_tensor
+
+    B, D = q.shape
+    N = base.shape[0]
+    check_tensor(base, "base", q.dtype, (N, D), q.device)
+    if not q.is_contiguous():
+        raise ValueError("queries must be contiguous")
+    for label, t in arrays.items():
+        if t is not None:
+            shape = (B,) if label.startswith("query") else (N,)
+            check_tensor(t, label, torch.float32, shape, q.device)
+
+
 def _launch_flat(entry: str, name: str, q, q_scale, base, base_scale,
-                 base_sq, invalid, metric: int, group: int, align: int):
-    """Check the CUDA inputs, launch one `csrc/flat_scan.cu` entry and
-    return its two [B, 2 LANES] outputs (f32, i32). Optional inputs the
-    entry does not read are None."""
-    from scintirete_tpu_torch.ops._ext import check_tensor, kernel
+                 base_sq, invalid, metric: int):
+    """Launch one unpacked flat scan entry (its argument list is shared)
+    and return its two [B, 2 LANES] outputs (f32, i32). Optional inputs
+    the entry does not read are None."""
+    from scintirete_tpu_torch.ops._ext import kernel
 
     B, D = q.shape
     N = base.shape[0]
     dev = q.device
     _check_metric(metric)
-    check_tensor(base, "base", q.dtype, (N, D), dev)
-    if not q.is_contiguous():
-        raise ValueError("queries must be contiguous")
-    for t, tname, shape in (
-        (q_scale, "query scale", (B,)), (base_scale, "base_scale", (N,)),
-        (base_sq, "base_sq", (N,)), (invalid, "invalid", (N,)),
-    ):
-        if t is not None:
-            check_tensor(t, tname, torch.float32, shape, dev)
+    _check_inputs(q, base, query_scale=q_scale, base_scale=base_scale,
+                  base_sq=base_sq, invalid=invalid)
     out_f = torch.empty((B, 2 * LANES), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, 2 * LANES), dtype=torch.int32, device=dev)
-    aligned = D % align == 0 and all(
+    aligned = (D * q.element_size()) % 16 == 0 and all(
         t.data_ptr() % 16 == 0 for t in (q, base)
     )
 
@@ -292,8 +332,35 @@ def _launch_flat(entry: str, name: str, q, q_scale, base, base_scale,
     err = kernel(entry)(
         q.data_ptr(), ptr(q_scale), base.data_ptr(), ptr(base_scale),
         base_sq.data_ptr(), ptr(invalid), out_f.data_ptr(),
-        out_i.data_ptr(), B, D, N, N // LANES, group, metric, int(aligned),
+        out_i.data_ptr(), B, D, N, N // LANES, 1, metric, int(aligned),
         torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return out_f, out_i
+
+
+def _launch_packed(entry: str, name: str, lead, B: int, N: int, tail,
+                   group: int, metric: int, dev):
+    """Launch a packed scan entry, `lead` (pointers) first and `tail`
+    (sizes) after the outputs, with its walk split into slices and their
+    workspace; returns (keys, rows)."""
+    from scintirete_tpu_torch.ops._ext import kernel
+
+    _check_metric(metric)
+    tiles = N // LANES
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slices = _slices(B, tiles // group, sms)
+    ws = None
+    if slices > 1:
+        ws = torch.empty((slices, B, 2 * LANES), dtype=torch.float32,
+                         device=dev)
+    out_f = torch.empty((B, 2 * LANES), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, 2 * LANES), dtype=torch.int32, device=dev)
+    err = kernel(entry)(
+        *lead, out_f.data_ptr(), out_i.data_ptr(),
+        None if ws is None else ws.data_ptr(), *tail, N, tiles, group,
+        slices, metric, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
@@ -322,9 +389,18 @@ def lane_topk_scan_packed(queries, base, base_sq, invalid, metric: int,
     if _device_kind(qb, name) == "cpu":
         keys = lane_topk_scan_packed_plain(qb, base, base_sq, invalid, metric)
         return keys, unpack_lane_keys(keys)[1]
-    keys, rows = _launch_flat(
-        "flat_packed_bf16", name, qb, None, base, None, base_sq, invalid,
-        metric, 1, 8,
+    _check_inputs(qb, base, base_sq=base_sq, invalid=invalid)
+    # TMA rows of whole 16-byte units; the column arrays are bulk-copied
+    # 64 rows (256 bytes) at a time
+    qb, base = tma_rows(qb), tma_rows(base)
+    base_sq, invalid = (
+        t if t.data_ptr() % 16 == 0 else t.clone() for t in (base_sq, invalid)
+    )
+    keys, rows = _launch_packed(
+        "flat_packed_bf16", name,
+        (qb.data_ptr(), None, base.data_ptr(), None, base_sq.data_ptr(),
+         invalid.data_ptr()),
+        qb.shape[0], N, (qb.shape[0], qb.shape[1]), 1, metric, qb.device,
     )
     lane_topk_scan_packed.launches += 1
     return keys, rows
@@ -340,7 +416,10 @@ def packed_int8_inputs(queries, base_scale, base_sq, invalid, metric: int):
     invalid rows get bs = 0 (kills the dot term whatever the int8 bits
     are) and bsq = _SENTINEL, so their score is exactly the "no candidate"
     sentinel with no per-score mask. Returns (q8, qs2, bs, bsq); qs2 is
-    twice the clamped query scale (the L2 factor folded in)."""
+    twice the clamped query scale (the L2 factor folded in). On the card
+    the scan's C entry makes the same arrays itself, op for op, in two
+    launches (`csrc/flat_scan.cu` `prep_queries_int8`,
+    `prep_columns_int8`)."""
     q8, q_scale = quantize_rows(queries.float())
     bad = invalid > 0.5
     bs = torch.nan_to_num(base_scale, nan=0.0, posinf=_SCALE_CAP, neginf=0.0)
@@ -379,17 +458,33 @@ def lane_topk_scan_packed_int8(queries, base8, base_scale, base_sq, invalid,
         raise ValueError(
             f"{name}: tps={tps} is not a whole number of {group}-tile groups"
         )
-    q8, qs2, bs, bsq = packed_int8_inputs(
-        queries, base_scale, base_sq, invalid, metric
-    )
-    if _device_kind(q8, name) == "cpu":
+    if _device_kind(queries, name) == "cpu":
+        q8, qs2, bs, bsq = packed_int8_inputs(
+            queries, base_scale, base_sq, invalid, metric
+        )
         keys = lane_topk_scan_packed_int8_plain(
             q8, qs2, base8, bs, bsq, metric, group
         )
         return keys, unpack_lane_keys(keys)[1]
-    keys, rows = _launch_flat(
-        "flat_packed_int8", name, q8, qs2, base8, bs, bsq, None, metric,
-        group, 16,
+    # the kernel's entry makes packed_int8_inputs' arrays itself (two
+    # launches in place of its ~20 small ones) into this scratch
+    from scintirete_tpu_torch.ops._ext import check_tensor
+
+    q = queries.float().contiguous()
+    check_tensor(base8, "base8", torch.int8, (N, q.shape[1]), q.device)
+    for t, label in ((base_scale, "base_scale"), (base_sq, "base_sq"),
+                     (invalid, "invalid")):
+        check_tensor(t, label, torch.float32, (N,), q.device)
+    base8 = tma_rows(base8)
+    B, Dp = q.shape[0], base8.shape[1]
+    q8 = torch.empty((B, Dp), dtype=torch.int8, device=q.device)
+    qs2 = torch.empty(B, dtype=torch.float32, device=q.device)
+    cols = torch.empty((2, N), dtype=torch.float32, device=q.device)
+    keys, rows = _launch_packed(
+        "flat_packed_int8", name,
+        tuple(t.data_ptr() for t in (q, base8, base_scale, base_sq, invalid,
+                                     q8, qs2, cols)),
+        B, N, (B, q.shape[1], Dp), group, metric, q.device,
     )
     lane_topk_scan_packed_int8.launches += 1
     return keys, rows
@@ -416,7 +511,7 @@ def lane_topk_scan_int8(queries, base8, base_scale, base_sq, invalid,
         )
     d, i = _launch_flat(
         "flat_lane_int8", name, q8, q_scale, base8, base_scale, base_sq,
-        invalid, metric, 1, 16,
+        invalid, metric,
     )
     lane_topk_scan_int8.launches += 1
     return d, i
@@ -447,7 +542,7 @@ def lane_topk_scan(queries, base, base_sq, invalid, metric: int):
         )
     d, i = _launch_flat(
         "lane_topk_scan", name, tma_rows(qb), None, tma_rows(base), None,
-        base_sq, invalid, metric, 1, 8,
+        base_sq, invalid, metric,
     )
     lane_topk_scan.launches += 1
     return d, i

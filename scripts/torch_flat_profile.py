@@ -3,11 +3,13 @@
     python3 scripts/torch_flat_profile.py [--n 1000000] [--batch 1024]
 
 Builds a cosine flat collection of clustered vectors through the port's
-Engine on the card and a FlatIndex of the same vectors, then times one batch of queries through each surface
+Engine on the card and a FlatIndex of the same vectors (int8 scan copy, the
+default), then times one batch of queries through each surface
 (FlatIndex.search_batch_arrays, FlatIndex.search_batch,
 Collection.search_batch_arrays, Collection.search_batch), splits a
 FlatIndex batch into its device part (submit + synchronize) and its host
-part (collect + assemble), and prints a cProfile of Collection.search_batch.
+part (collect + assemble), does the same split for a FlatIndex with the
+bf16 scan copy, and prints a cProfile of Collection.search_batch.
 Host-clock medians of 7 calls, each ending with every result on the host.
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -72,20 +74,31 @@ def main() -> None:
     col.insert([(v, None) for v in base])
     idx = FlatIndex(128, metric=DistanceMetric.COSINE, device="cuda")
     idx.bulk_insert(list(range(1, args.n + 1)), base)
+    idx16 = FlatIndex(128, metric=DistanceMetric.COSINE, device="cuda",
+                      scan_dtype="bfloat16")
+    idx16.bulk_insert(list(range(1, args.n + 1)), base)
     sp = SearchParams(top_k=10)
     col.search_batch(q, sp)
     idx.search_batch(q, sp)
+    idx16.search_batch(q, sp)
 
-    def device_part():
-        pending = idx.search_submit(q, sp)
+    def device_part(index=idx):
+        pending = index.search_submit(q, sp)
         torch.cuda.synchronize()
         return pending
 
     pending = device_part()
+    pending16 = device_part(idx16)
     for name, fn in (
         ("FlatIndex device part (submit + synchronize)", device_part),
         ("FlatIndex host part (collect + tuples)",
          lambda: idx.search_collect(pending)),
+        ("FlatIndex (bf16 scan copy) device part",
+         lambda: device_part(idx16)),
+        ("FlatIndex (bf16 scan copy) host part",
+         lambda: idx16.search_collect(pending16)),
+        ("FlatIndex (bf16 scan copy).search_batch_arrays",
+         lambda: idx16.search_batch_arrays(q, sp)),
         ("FlatIndex.search_batch_arrays", lambda: idx.search_batch_arrays(q, sp)),
         ("FlatIndex.search_batch", lambda: idx.search_batch(q, sp)),
         ("Collection.search_batch_arrays",

@@ -1,13 +1,15 @@
 """The port's batched append against the JAX package's, on the CPU.
 
-Both packages build the same 2,500-vector collection from one seed and
-append the same 2,200 vectors (each batch at least APPEND_MIN, so both
-take the batched append). The JAX side takes its fused path (bf16 scans,
-the masked Pallas kernel in interpret mode), which is the path the port
-always takes. Levels, slots, entry point and layer membership come from
-the seeded numpy streams and must be equal. Neighbor lists may differ
-where bf16 scores tie or f32 sums round differently, so they are held to
-a per-layer overlap and to recall.
+The port builds a 2,500-vector collection from one seed; the JAX package
+takes that graph (its state dict) and the level stream's state, and both
+append the same 2,200 vectors (at least APPEND_MIN, so both take the
+batched append) onto the same graph. (The build itself is held to the JAX
+build in tests/test_torch_build.py.) The JAX side takes its fused path
+(bf16 scans, the masked Pallas kernel in interpret mode), which is the path
+the port always takes. Levels, slots, entry point and layer membership
+come from the seeded numpy streams and must be equal. Neighbor lists may
+differ where bf16 scores tie or f32 sums round differently, so they are
+held to a per-layer overlap and to recall.
 """
 
 import numpy as np
@@ -48,15 +50,18 @@ def _corpus(seed, n):
 
 
 def _build_both(base, params, metric):
+    """The port builds the first N1 vectors; the JAX package takes that
+    graph and the level stream where the build left it, so the two
+    appends of the rest start from one graph and draw the same levels."""
     port = HNSWIndex(D, params, metric, device="cpu")
     port.bulk_insert(list(range(1, N1 + 1)), base[:N1])
+    jax_idx = JaxHNSWIndex.import_graph_state(port.export_graph_state())
+    jax_idx.store.rng.bit_generator.state = port.store.rng.bit_generator.state
     port.bulk_insert(list(range(N1 + 1, N + 1)), base[N1:N])
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("SCNT_BUILD_INTERPRET", "1")
         mp.setenv("SCNT_BUILD_SCAN_DTYPE", "bfloat16")
         mp.setenv("SCNT_APPEND_INTERPRET", "1")
-        jax_idx = JaxHNSWIndex(D, params, metric)
-        jax_idx.bulk_insert(list(range(1, N1 + 1)), base[:N1])
         jax_idx.bulk_insert(list(range(N1 + 1, N + 1)), base[N1:N])
     return port, jax_idx
 

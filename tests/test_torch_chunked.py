@@ -1,9 +1,9 @@
 """The port's chunked device insertion against the JAX package's, on the CPU.
 
-Both packages insert the same 600 vectors in batches of 200 (each under
-the append threshold, so past the 256-vector host bootstrap every batch
-takes the chunked path: the build descent against the frozen graph, then
-the C++ link application). Levels and layer membership come from the
+Both packages insert the same 480 vectors in batches of 200, 200 and 80
+(each under the append threshold, so past the 256-vector host bootstrap
+every batch takes the chunked path: the build descent against the frozen
+graph, then the C++ link application). Levels and layer membership come from the
 seeded numpy streams and must be equal; neighbor lists may differ where
 f32 sums taken in another order break a near-tie differently, so they
 are held to an overlap and to recall. The build descent itself is held to
@@ -18,7 +18,7 @@ from scintirete_tpu.types import DistanceMetric, HNSWParams, SearchParams
 from scintirete_tpu_torch.index.hnsw import HNSWIndex
 from scintirete_tpu_torch.ops.distance import distance_np
 
-N, BATCH, D, NQ, K = 600, 200, 16, 100, 10
+N, BATCH, D, NQ, K = 480, 200, 16, 100, 10
 PARAMS = HNSWParams(m=8, ef_construction=48, ef_search=64, seed=21,
                     neighbor_heuristic=True)
 # mean share of the JAX build's neighbors that the port's build also has,
@@ -43,7 +43,8 @@ def data():
 
 def _insert_in_batches(idx, base):
     for s in range(0, N, BATCH):
-        idx.bulk_insert(list(range(s + 1, s + BATCH + 1)), base[s : s + BATCH])
+        e = min(s + BATCH, N)
+        idx.bulk_insert(list(range(s + 1, e + 1)), base[s:e])
 
 
 @pytest.fixture(scope="module")

@@ -13,8 +13,10 @@ lane kernel streams through its ring (D = 768), query counts that are not
 a multiple of the 64- or 128-row tiles (B = 1, 65), a single tile, a masked
 scan over a ragged base and one with every row masked, exact ties that the
 lane fold must break in tile order, the four flat scans at odd shapes,
-with every row masked and with overflowed norms, and a small build,
-append, search and flat collection on the card.
+with every row masked and with overflowed norms, the packed scans at
+ragged B, padded and deep D, split and unsplit walks over 2^20 rows and
+equal scores in every tile of a lane, and a small build, append, search
+and flat collection on the card.
 """
 
 import numpy as np
@@ -270,6 +272,12 @@ def _flat_scan_inputs(dev, metric, B, N, D, seed):
 
 
 FLAT_SHAPES = [(64, 2048, 16), (300, 4096, 40), (129, 8192, 128), (7, 1024, 33)]
+KEY_RTOL = 2.0**-10  # one unit of the last mantissa bit a packed key keeps
+# bf16 keys: the f32 sums of a tensor-core product (wgmma) round in another
+# order than torch.matmul's, by up to ~3e-5 on these sizes; where a score
+# cancels to near zero that is more than one unit of its key, so the keys
+# get the same absolute term as the unpacked bf16 scores (atol 1e-4)
+KEY_ATOL = 1e-4
 
 
 @pytest.mark.parametrize("metric", [1, 2, 3])
@@ -314,8 +322,8 @@ def test_flat_int8_kernels_match_plain(dev, metric, B, N, D):
 def test_flat_bf16_kernels_match_plain(dev, metric, B, N, D):
     """bf16 products summed in f32 in another order than torch.matmul: a
     packed key within one unit of its last kept mantissa bit (2^-10
-    relative), unpacked scores within rtol 1e-5 / atol 1e-4, ids equal but
-    for near-ties."""
+    relative) or KEY_ATOL, unpacked scores within rtol 1e-5 / atol 1e-4,
+    ids equal but for near-ties."""
     from scintirete_tpu_torch.ops import packed_scan as ps
 
     q, base32, bsq, invalid = _flat_scan_inputs(dev, metric, B, N, D, B + N + D + 1)
@@ -327,7 +335,7 @@ def test_flat_bf16_kernels_match_plain(dev, metric, B, N, D):
     torch.cuda.synchronize()
     assert ps.lane_topk_scan_packed.launches == before + 1
     assert bool(torch.isfinite(keys).all())
-    torch.testing.assert_close(keys, want, rtol=2.0**-10, atol=1e-30)
+    torch.testing.assert_close(keys, want, rtol=KEY_RTOL, atol=KEY_ATOL)
     assert (rows == ps.unpack_lane_keys(want)[1]).float().mean() > 0.999
     assert not bool((invalid[rows[rows >= 0].long()] > 0.5).any())
 
@@ -340,6 +348,126 @@ def test_flat_bf16_kernels_match_plain(dev, metric, B, N, D):
     assert torch.equal(fin, torch.isfinite(d))
     torch.testing.assert_close(d[fin], want_d[fin], rtol=1e-5, atol=1e-4)
     assert (i == want_i).float().mean() > 0.999
+
+
+def _hold_packed_scans(q, base32, bsq, invalid, metric, tps_all=(1, 2, 4),
+                       bf16_exact=False):
+    """Both packed scans against their plain versions: int8 keys bit for
+    bit at every tile group that divides the walk, bf16 keys within
+    KEY_RTOL or KEY_ATOL (bit for bit where every dot is exact in f32) with rows
+    >= 0.999 equal; no masked row comes out."""
+    from scintirete_tpu_torch.ops import packed_scan as ps
+
+    N = base32.shape[0]
+    base8, scale = ps.quantize_rows(base32)
+    for tps in tps_all:
+        if (N // 1024) % tps:
+            continue
+        before = ps.lane_topk_scan_packed_int8.launches
+        keys, rows = ps.lane_topk_scan_packed_int8(
+            q, base8, scale, bsq, invalid, metric, tps=tps
+        )
+        q8, qs2, bs, bq = ps.packed_int8_inputs(q, scale, bsq, invalid, metric)
+        want = ps.lane_topk_scan_packed_int8_plain(
+            q8, qs2, base8, bs, bq, metric, min(4, tps)
+        )
+        torch.cuda.synchronize()
+        assert ps.lane_topk_scan_packed_int8.launches == before + 1
+        assert torch.equal(keys.view(torch.int32), want.view(torch.int32)), tps
+        assert torch.equal(rows, ps.unpack_lane_keys(want)[1])
+        assert not bool((invalid[rows[rows >= 0].long()] > 0.5).any())
+    base = base32.to(torch.bfloat16)
+    before = ps.lane_topk_scan_packed.launches
+    keys, rows = ps.lane_topk_scan_packed(q, base, bsq, invalid, metric)
+    want = ps.lane_topk_scan_packed_plain(
+        q.to(torch.bfloat16), base, bsq, invalid, metric
+    )
+    torch.cuda.synchronize()
+    assert ps.lane_topk_scan_packed.launches == before + 1
+    assert bool(torch.isfinite(keys).all())
+    if bf16_exact:
+        assert torch.equal(keys.view(torch.int32), want.view(torch.int32))
+    torch.testing.assert_close(keys, want, rtol=KEY_RTOL, atol=KEY_ATOL)
+    assert (rows == ps.unpack_lane_keys(want)[1]).float().mean() >= 0.999
+    assert not bool((invalid[rows[rows >= 0].long()] > 0.5).any())
+
+
+@pytest.mark.parametrize("metric", [1, 2, 3])
+@pytest.mark.parametrize("B", [1, 63, 65, 129, 1025])
+def test_packed_scans_ragged_batches(dev, metric, B):
+    """Query counts around the 64-row warpgroup and 128-row block edges;
+    B = 1, 63, 65 and 129 split the walk into slices, 1025 does not."""
+    q, base32, bsq, invalid = _flat_scan_inputs(dev, metric, B, 8192, 128, B)
+    _hold_packed_scans(q, base32, bsq, invalid, metric)
+
+
+@pytest.mark.parametrize("metric", [1, 2, 3])
+@pytest.mark.parametrize("D", [100, 768])
+def test_packed_scans_padded_and_deep(dev, metric, D):
+    """D = 100 is padded to 112 columns (int8) and 104 (bf16) for TMA;
+    D = 768 streams the queries through the ring (bf16) and converts its
+    int8 dots with I2F (|dot| may pass 2^22)."""
+    q, base32, bsq, invalid = _flat_scan_inputs(dev, metric, 70, 4096, D, D)
+    _hold_packed_scans(q, base32, bsq, invalid, metric)
+
+
+@pytest.mark.parametrize("B", [1, 4096])
+def test_packed_scans_on_a_million_rows(dev, B):
+    """2^20 rows, cosine: B = 1 runs its walk in several slices and merges
+    them, B = 4096 in one."""
+    from scintirete_tpu_torch.ops import packed_scan as ps
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (ps._slices(B, 1024, sms) > 1) == (B == 1)
+    q, base32, bsq, invalid = _flat_scan_inputs(dev, 2, B, 1 << 20, 128, 7)
+    _hold_packed_scans(q, base32, bsq, invalid, 2, tps_all=(1, 4))
+
+
+@pytest.mark.parametrize("metric", [1, 2, 3])
+@pytest.mark.parametrize("B", [1, 65])
+def test_packed_scans_equal_scores_across_tiles(dev, metric, B):
+    """Small-integer rows repeated in every tile: each lane sees the same
+    score in all 64 tiles, and only the tile id in the key tells them
+    apart. Dots are exact in f32, so the bf16 keys must be bit-equal too,
+    split into slices (B = 1) or not."""
+    g = torch.Generator(device=dev).manual_seed(B + metric)
+    rows = torch.randint(-3, 4, (1024, 32), generator=g, device=dev).float()
+    base32 = rows.repeat(64, 1)
+    q = torch.randint(-3, 4, (B, 32), generator=g, device=dev).float()
+    bsq = (base32 * base32).sum(1)
+    invalid = torch.zeros(base32.shape[0], device=dev)
+    invalid[5 * 1024 : 6 * 1024 : 3] = 1.0
+    _hold_packed_scans(q, base32, bsq, invalid, metric, bf16_exact=True)
+
+
+@pytest.mark.parametrize("metric", [1, 2])
+def test_packed_int8_prepares_inputs_as_plain(dev, metric):
+    """On the card the int8 scan's entry quantizes the queries and masks
+    and clamps the [N] terms itself; with NaN / inf / zero query rows and
+    NaN / inf / negative scales, norms and mask values its keys still
+    equal the plain version's (packed_int8_inputs) bit for bit."""
+    from scintirete_tpu_torch.ops import packed_scan as ps
+
+    q, base32, bsq, invalid = _flat_scan_inputs(dev, metric, 9, 2048, 40, 8)
+    base8, scale = ps.quantize_rows(base32)
+    q[1, 3] = float("nan")
+    q[2, 5] = float("inf")
+    q[3] = 0.0
+    q[4, 7] = -1e30
+    for i, v in enumerate(("nan", "inf", "-inf", "-1.0", "1e20")):
+        scale[10 + i] = float(v)
+        bsq[20 + i] = float(v)
+    invalid[30] = float("nan")
+    keys, rows = ps.lane_topk_scan_packed_int8(q, base8, scale, bsq, invalid,
+                                               metric, tps=2)
+    want = ps.lane_topk_scan_packed_int8_plain(
+        *ps.packed_int8_inputs(q, scale, bsq, invalid, metric)[:2],
+        base8, *ps.packed_int8_inputs(q, scale, bsq, invalid, metric)[2:],
+        metric, 2,
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(keys.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(rows, ps.unpack_lane_keys(want)[1])
 
 
 def test_flat_scans_all_masked_and_overflow(dev):

@@ -108,6 +108,35 @@ def test_flat_index_matches_jax_and_oracle(corpus, rng, metric, route):
     assert not set(sum(_ids(got), [])) & set((gone + 1).tolist())
 
 
+@pytest.mark.parametrize("metric", [DistanceMetric.L2, DistanceMetric.COSINE])
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_scan_copy_padded_to_tma_width(rng, metric, route):
+    """dim = 20: the scan copy is made with zero columns up to whole 16-byte
+    rows (the packed scans' TMA copies): 32 int8 or 24 bf16 columns. The
+    fused route pads its queries to match, and so does the two-pass route
+    below fused_min_cap, whose bf16 copy feeds flat_topk: ids and
+    distances stay the JAX package's, also after a scattered update."""
+    base = rng.standard_normal((2600, 20)).astype(np.float32)
+    queries = rng.standard_normal((16, 20)).astype(np.float32)
+    port = _flat(20, metric, **ROUTES[route])
+    ref = JaxFlatIndex(dim=20, metric=metric, use_device=True)
+    sp = SearchParams(top_k=10)
+    for idx in (port, ref):
+        idx.bulk_insert(list(range(1, 2001)), base[:2000])
+    _assert_same_results(port.search_batch(queries, sp),
+                         ref.search_batch(queries, sp))
+    int8 = route == "fused_int8"
+    assert port._dev["scan"].shape == (2048, 32 if int8 else 24)
+    assert not port._dev["scan"][:, 20:].any()
+    for idx in (port, ref):  # the capacity holds: a scatter of dirty rows
+        idx.bulk_insert(list(range(2001, 2049)), base[2000:2048])
+        assert idx.delete(5) is True
+    _assert_same_results(port.search_batch(queries, sp),
+                         ref.search_batch(queries, sp))
+    assert port._dev["scan"].shape == (2048, 32 if int8 else 24)
+    assert not port._dev["scan"][:, 20:].any()
+
+
 @pytest.mark.parametrize("route", list(ROUTES))
 @pytest.mark.parametrize("query_dtype,tol", [("f16", 2e-3), ("int8", 2e-2)])
 def test_narrow_query_dtypes(corpus, route, query_dtype, tol):

@@ -590,3 +590,47 @@ def test_int8_scan_rejects_odd_group_count(rng):
         port_flat.flat_topk_fused(
             _t(q), _t(b8), _t(scan), _t(invalid < 0.5), L2, 5, _t(scan_sq)
         )
+
+
+@pytest.mark.parametrize("B,groups,want", [
+    (1, 1024, 8),      # 16 blocks: eight slices fill 128 of 132 SMs
+    (1, 4, 4),         # no more slices than tile groups
+    (513, 1024, 3),    # 80 blocks: three slices, two waves of a third each
+    (1024, 1024, 1),   # 128 blocks: one wave already
+    (4096, 1024, 1),
+])
+def test_packed_scan_slices(B, groups, want):
+    """How the card's packed scans split their tile walk, on 132 SMs."""
+    assert port_scan._slices(B, groups, 132) == want
+
+
+@pytest.mark.parametrize("group", [1, 4])
+def test_packed_keys_merge_across_slices(rng, group):
+    """The split the card's packed scans make: slices of whole tile groups
+    folded apart and their (k1, k2) merged by the same fold give the one
+    walk's keys bit for bit, ties included (small-integer rows repeated
+    in every tile score the same in all of a lane's tiles)."""
+    tiles, D = 16, 8
+    rows = rng.integers(-3, 4, (LANES, D)).astype(np.float32)
+    base8, scale = port_scan.quantize_rows(_t(np.tile(rows, (tiles, 1))))
+    q8, qs2, bs, bsq = port_scan.packed_int8_inputs(
+        _t(rng.integers(-3, 4, (3, D)).astype(np.float32)), scale,
+        torch.zeros(tiles * LANES), torch.zeros(tiles * LANES), COS,
+    )
+    one = port_scan.lane_topk_scan_packed_int8_plain(
+        q8, qs2, base8, bs, bsq, COS, group
+    )
+    k1 = torch.full((3, LANES), port_scan._SENTINEL)
+    k2 = k1.clone()
+    for lo in range(0, tiles * LANES, 4 * group * LANES):
+        # a slice of 4 groups, folded on its own with its own tile ids
+        part = slice(lo, lo + 4 * group * LANES)
+        keys = port_scan.lane_topk_scan_packed_int8_plain(
+            q8, qs2, base8[part], bs[part], bsq[part], COS, group
+        ).view(torch.int32)
+        ids = (keys & port_scan._TILE_MASK) + lo // LANES
+        keys = ((keys & ~port_scan._TILE_MASK) | ids).view(torch.float32)
+        for k in (keys[:, :LANES], keys[:, LANES:]):
+            k1, k2 = port_scan._fold_best_two_packed(k, k1, k2)
+    merged = torch.cat([k1, k2], dim=1)
+    assert torch.equal(merged.view(torch.int32), one.view(torch.int32))
