@@ -731,8 +731,7 @@ lane_int8_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
 // The packed scans: out_f / out_i [B, 2048] keys and rows; ws [slices, B,
 // 2048] f32 scratch, read only when slices > 1.
 // bf16: q [B, D] and base [N, D] bf16 (D % 8 == 0), bsq / invalid [N].
-extern "C" int scnt_flat_packed_bf16(const void* q, const void* /*qs*/,
-                                     const void* base, const void* /*bs*/,
+extern "C" int scnt_flat_packed_bf16(const void* q, const void* base,
                                      const void* bsq, const void* invalid,
                                      void* out_f, void* out_i, void* ws,
                                      int B, int D, long long N, int tiles,

@@ -53,11 +53,11 @@ SIGNATURES = {
             ("flat_scan", "flat_lane_int8"),
         )
     },
-    # the packed ones take a workspace and a slice count beside it, and
-    # the int8 one its raw inputs and scratch for preparing them
+    # the packed ones take a workspace and a slice count, and the int8
+    # one its raw inputs and scratch for preparing them
     "flat_packed_bf16": (
         "flat_scan", "scnt_flat_packed_bf16",
-        [_P] * 9 + [_I, _I, _LL, _I, _I, _I, _I, _P],
+        [_P] * 7 + [_I, _I, _LL, _I, _I, _I, _I, _P],
     ),
     "flat_packed_int8": (
         "flat_scan", "scnt_flat_packed_int8",

@@ -290,15 +290,15 @@ def _slices(B: int, groups: int, sms: int) -> int:
     return best
 
 
-def _check_inputs(q, base, **arrays) -> None:
-    """A scan's CUDA inputs: contiguous queries, a base of their type and
-    width, and f32 [N] or [B] arrays (None where not read), all on the
-    queries' device."""
+def _check_inputs(q, base, base_dtype=None, **arrays) -> None:
+    """A scan's CUDA inputs: contiguous queries, a base of their width and
+    of their type (or `base_dtype`), and f32 [N] or [B] arrays (None where
+    not read), all on the queries' device."""
     from scintirete_tpu_torch.ops._ext import check_tensor
 
     B, D = q.shape
     N = base.shape[0]
-    check_tensor(base, "base", q.dtype, (N, D), q.device)
+    check_tensor(base, "base", base_dtype or q.dtype, (N, D), q.device)
     if not q.is_contiguous():
         raise ValueError("queries must be contiguous")
     for label, t in arrays.items():
@@ -398,7 +398,7 @@ def lane_topk_scan_packed(queries, base, base_sq, invalid, metric: int,
     )
     keys, rows = _launch_packed(
         "flat_packed_bf16", name,
-        (qb.data_ptr(), None, base.data_ptr(), None, base_sq.data_ptr(),
+        (qb.data_ptr(), base.data_ptr(), base_sq.data_ptr(),
          invalid.data_ptr()),
         qb.shape[0], N, (qb.shape[0], qb.shape[1]), 1, metric, qb.device,
     )
@@ -468,13 +468,9 @@ def lane_topk_scan_packed_int8(queries, base8, base_scale, base_sq, invalid,
         return keys, unpack_lane_keys(keys)[1]
     # the kernel's entry makes packed_int8_inputs' arrays itself (two
     # launches in place of its ~20 small ones) into this scratch
-    from scintirete_tpu_torch.ops._ext import check_tensor
-
     q = queries.float().contiguous()
-    check_tensor(base8, "base8", torch.int8, (N, q.shape[1]), q.device)
-    for t, label in ((base_scale, "base_scale"), (base_sq, "base_sq"),
-                     (invalid, "invalid")):
-        check_tensor(t, label, torch.float32, (N,), q.device)
+    _check_inputs(q, base8, torch.int8, base_scale=base_scale,
+                  base_sq=base_sq, invalid=invalid)
     base8 = tma_rows(base8)
     B, Dp = q.shape[0], base8.shape[1]
     q8 = torch.empty((B, Dp), dtype=torch.int8, device=q.device)
