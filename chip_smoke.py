@@ -25,7 +25,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
     N=1,048,576, D=128, 3 metrics, 1% deleted rows and an invalid tail
     past 1,000,000; the int8 scans must equal their plain versions bit for
     bit, the bf16 ones within the f32 sum-order tolerance (packed keys:
-    their scores, tile ids cleared); both packed scans also with one
+    their scores, tile ids cleared, within one kept unit plus the f32
+    summation bound of the rows picked); both packed scans also with one
     query (the tile walk split into slices) and with 4,096, the other two
     batch sizes the flat path launches them at, at every metric and int8
     group, and timed at one query too); the two graph-build
@@ -464,13 +465,6 @@ def log_timing(name, what, timing, bound, one_ms=None):
         f"bound {bound[0]:.4f} ms ({bound[1]}){one}")
 
 
-def score_part(keys):
-    """Packed keys with their tile ids (the low 13 bits) cleared."""
-    import torch
-
-    return (keys.view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
 def other_batches(dev, metric):
     """The flat path's other two batch sizes for one launch: all 4,096
     queries (a grid four times deeper, one slice) and one query (127
@@ -599,20 +593,26 @@ def check_packed(dev, inputs):
                 fail(f"{name} metric={metric} B={b}: a packed key is not "
                      f"finite")
             worst = max(worst, float((keys - want).abs().max()))
-            # the f32 sum of a product runs in another order than the
-            # library's: one unit of the last mantissa bit a key keeps.
-            # The low 13 bits are the tile id, not the score: rows of a
-            # near tie that the two sides order differently carry
-            # different ids, so the check clears them on both sides
+            # the kernel sums each dot in f32 in another order than the
+            # library: the scores (tile ids cleared: rows of a near tie
+            # that the two sides order differently carry different ids)
+            # within one kept unit plus the f32 summation bound of the
+            # rows either side picked (packed_bf16_sum_bound)
             same = rows == ps.unpack_lane_keys(want)[1]
-            score, want_score = score_part(keys), score_part(want)
+            score = ps.packed_key_scores(keys)
+            want_score = ps.packed_key_scores(want)
             diff = (score - want_score).abs()
-            over = diff > KEY_RTOL * want_score.abs() + 1e-30
+            unit = KEY_RTOL * want_score.abs()
+            sums = ps.packed_bf16_sum_bound(
+                rows, want, qx.to(torch.bfloat16), base, bsq, metric
+            )
+            over = diff > unit + sums
             if bool(over.any()):
                 fail(f"{name} metric={metric} B={b}: {int(over.sum())} key "
-                     f"scores differ by more than KEY_RTOL (up to "
-                     f"{float(diff.max())}; {int((over & ~same).sum())} of "
-                     f"them where the rows differ)")
+                     f"scores beyond the bound (up to {float(diff.max())}; "
+                     f"{int((over & ~same).sum())} of them where the rows "
+                     f"differ)")
+            past_unit = int((diff > unit).sum())
             share = float(same.float().mean())
             bits = float((keys.view(torch.int32) == want.view(torch.int32))
                          .float().mean())
@@ -622,7 +622,9 @@ def check_packed(dev, inputs):
             no_invalid_row(name, rows, invalid)
             log(f"{name} metric={metric} B={b}: max|dk|="
                 f"{float((keys - want).abs().max()):.3g} max|d score|="
-                f"{float(diff.max()):.3g} keys bit-equal {bits:.6f} rows "
+                f"{float(diff.max()):.3g}, {past_unit} of {diff.numel()} "
+                f"past one kept unit (largest sum bound "
+                f"{float(sums.max()):.3g}), keys bit-equal {bits:.6f} rows "
                 f"equal {share:.6f}")
         if metric == 2:
             qb = qs.to(torch.bfloat16)

@@ -68,9 +68,11 @@
 // - the int8 entry makes the scan's inputs itself (packed_int8_inputs:
 //   the query quantization and the [N] masks and clamps) in two launches,
 //   where the wrapper's ~20 small torch ops left the card waiting ~0.5 ms;
-// - the s32 -> f32 conversion of an int8 dot is an integer add into the
-//   mantissa of 1.5 * 2^23 and a subtract, exact while |dot| <= 2^22
-//   (D <= 256), in place of the reduced-rate I2F;
+// - the s32 -> f32 conversion of an int8 dot is I2F (round to nearest).
+//   An integer add into the mantissa of 1.5 * 2^23 and a subtract (exact
+//   while |dot| <= 2^22) was slower on an H100: 0.91-0.92 ms against
+//   0.82 ms with I2F at B = 1024, N = 2^20, D = 128. The add and the
+//   subtract issue on the pipes the fold fills, I2F beside them;
 // - the tile walk is split into `slices` contiguous ranges that start at a
 //   group boundary, one block each, where a launch would otherwise leave
 //   SMs idle (B = 1 is 16 blocks of one range each on 132 SMs). Packed
@@ -161,11 +163,6 @@ __host__ __device__ inline Layout layout_for(int chunks) {
   return L;
 }
 
-// exact s32 -> f32 for |x| <= 2^22: x added into the mantissa of 1.5 * 2^23
-__device__ __forceinline__ float small_int_to_float(int x) {
-  return __fsub_rn(__int_as_float(x + 0x4B400000), 12582912.0f);
-}
-
 template <bool kInt8>
 struct Acc;
 template <>
@@ -177,11 +174,11 @@ struct Acc<true> { using T = int; };
 // = bs / bsq [N] (masked and clamped by the wrapper); otherwise q / base
 // bf16, col_a / col_b = bsq / invalid [N]. The column arrays are copied
 // per tile beside the tile's last chunk (1-D bulk copies), 16-byte
-// aligned. kGrouped: int8 groups of `group` > 1 tiles. kSmallDot: |dot| <=
-// 2^22. Block (x, y, z) = (query tile, lane range, slice of the tile walk);
+// aligned. kGrouped: int8 groups of `group` > 1 tiles. Block (x, y, z)
+// = (query tile, lane range, slice of the tile walk);
 // with one slice the block writes keys and rows, with more it writes its
 // keys to ws [slices, B, 2048] for merge_slices.
-template <bool kInt8, bool kL2Metric, bool kGrouped, bool kSmallDot>
+template <bool kInt8, bool kL2Metric, bool kGrouped>
 __global__ void __launch_bounds__(kThreads, 1)
 packed_scan_kernel(const __grid_constant__ CUtensorMap q_map,  // [B, D]
                    const __grid_constant__ CUtensorMap b_map,  // [N, D]
@@ -347,8 +344,7 @@ packed_scan_kernel(const __grid_constant__ CUtensorMap q_map,  // [B, D]
             float s;
             if constexpr (kInt8) {
               const float w = kL2Metric ? __fmul_rn(e ? qsb : qsa, va) : va;
-              const float dot = kSmallDot ? small_int_to_float(acc[j])
-                                          : __int2float_rn(acc[j]);
+              const float dot = __int2float_rn(acc[j]);
               s = __fsub_rn(vb, __fmul_rn(dot, w));
             } else {
               s = kL2Metric ? __fsub_rn(c, __fmul_rn(2.f, acc[j]))
@@ -495,9 +491,9 @@ struct Launch {
   cudaStream_t stream;
 };
 
-template <bool kInt8, bool kL2Metric, bool kGrouped, bool kSmallDot>
+template <bool kInt8, bool kL2Metric, bool kGrouped>
 cudaError_t start(const Launch& a) {
-  auto kernel = packed_scan_kernel<kInt8, kL2Metric, kGrouped, kSmallDot>;
+  auto kernel = packed_scan_kernel<kInt8, kL2Metric, kGrouped>;
   const int smem =
       static_cast<int>(
           layout_for((a.row_bytes + kRowBytes - 1) / kRowBytes).total) + 1024;
@@ -516,16 +512,11 @@ cudaError_t start(const Launch& a) {
 }
 
 template <bool kInt8, bool kL2Metric>
-cudaError_t start_for(const Launch& a, bool small_dot) {
-  if constexpr (!kInt8) {
-    return start<false, kL2Metric, false, false>(a);
-  } else {
-    if (a.group > 1)
-      return small_dot ? start<true, kL2Metric, true, true>(a)
-                       : start<true, kL2Metric, true, false>(a);
-    return small_dot ? start<true, kL2Metric, false, true>(a)
-                     : start<true, kL2Metric, false, false>(a);
+cudaError_t start_for(const Launch& a) {
+  if constexpr (kInt8) {
+    if (a.group > 1) return start<true, kL2Metric, true>(a);
   }
+  return start<kInt8, kL2Metric, false>(a);
 }
 
 template <bool kInt8>
@@ -572,9 +563,8 @@ int launch(const void* q, const void* qs, const void* base, const void* bs,
   a.tiles = tiles;
   a.group = group;
   a.stream = static_cast<cudaStream_t>(stream);
-  const bool small_dot = D <= 256;
-  const cudaError_t err = metric == kL2 ? start_for<kInt8, true>(a, small_dot)
-                                        : start_for<kInt8, false>(a, small_dot);
+  const cudaError_t err = metric == kL2 ? start_for<kInt8, true>(a)
+                                        : start_for<kInt8, false>(a);
   if (err != cudaSuccess || a.slices == 1) return static_cast<int>(err);
   const int64_t n = static_cast<int64_t>(B) * kLanes;
   merge_slices<<<static_cast<unsigned>((n + 255) / 256), 256, 0, a.stream>>>(

@@ -3,7 +3,8 @@
 Ports of the flat half of `scintirete_tpu/ops/pallas_scan.py`:
 `lane_topk_scan_packed_int8`, `lane_topk_scan_packed`,
 `lane_topk_scan_int8`, `lane_topk_scan`, with `quantize_rows`,
-`unpack_lane_keys` and the packing helpers.
+`unpack_lane_keys` and the packing helpers (and `packed_bf16_sum_bound`,
+how far two bf16 scans that sum in different orders may part).
 
 Lane j keeps the two least ranking scores among base rows {j, j + LANES,
 j + 2 LANES, ...}, folded in tile order. Scores are RANKING form (L2
@@ -116,6 +117,48 @@ def unpack_lane_keys(keys, lanes: int = LANES):
     rows = tile * lanes + lane[None, :]
     valid = keys < (_SENTINEL * 0.5)
     return keys, torch.where(valid, rows, -1), valid
+
+
+def packed_key_scores(keys):
+    """Packed keys with their tile ids cleared: the truncated scores."""
+    bits = keys.contiguous().view(torch.int32)
+    return (bits & ~_TILE_MASK).view(torch.float32)
+
+
+def packed_bf16_sum_bound(rows, other_keys, qb, base, base_sq,
+                          metric: int):
+    """How far the scores of two packed bf16 scans of the same inputs may
+    part when each sums its dots in f32 in its own order (a tensor-core
+    product against torch.matmul): [B, 2 LANES] f32, per key. `rows` are
+    one scan's rows, `other_keys` the other scan's keys.
+
+    A score is a sum of n exact f32 terms (a product of two bf16 values is
+    exact in f32): -q_k b_k for cosine and IP (n = D), base_sq and
+    -2 q_k b_k for L2 (n = D + 1). In any order an f32 sum lies within
+    gamma_n M of the exact sum (gamma_n = n u / (1 - n u), u = 2^-24, M
+    the sum of the terms' magnitudes), so a row's two scores part by at
+    most 2 gamma_n M, and a lane's least (and second least) scores by at
+    most the largest such bound over the rows either scan picked for it.
+    Packing truncates the last 13 bits on top of this (one kept unit)."""
+    B, D = qb.shape
+    picked = torch.cat([rows, unpack_lane_keys(other_keys)[1]], dim=1).long()
+    qa = qb.float().abs()
+    mag = torch.empty(picked.shape, device=qb.device)
+    step = max(1, (1 << 24) // (picked.shape[1] * D))
+    for s in range(0, B, step):
+        r = picked[s : s + step].clamp_min(0)
+        mag[s : s + step] = (
+            qa[s : s + step, None, :] * base[r, :D].float().abs()
+        ).sum(-1)
+    n = D
+    if metric == _L2:
+        n = D + 1
+        mag = 2.0 * mag + base_sq.abs()[picked.clamp_min(0)]
+    mag = torch.where(picked >= 0, mag, 0.0)
+    u = 2.0**-24
+    gamma = n * u / (1.0 - n * u)
+    lane = 2.0 * gamma * mag.view(B, 4, LANES).amax(1)
+    return lane.repeat(1, 2)
 
 
 def _fold_best_two_packed(key, k1, k2):

@@ -2,18 +2,16 @@
 
     python3 scripts/torch_flat_split.py
 
-Compiles four copies of `scintirete_tpu_torch/csrc/flat_scan.cu` into
+Compiles three copies of `scintirete_tpu_torch/csrc/flat_scan.cu` into
 build/flat_split/: the kernel as it is; "product only", whose epilogue
 keeps just a running minimum of the raw dots (the ring, the TMA copies and
-the wgmma products, no score and no fold); "fold only", which issues
+the wgmma products, no score and no fold); and "fold only", which issues
 no product (the ring, the copies and the score and fold of unchanged
-accumulators); and "kernel, I2F", which converts every int8 dot with
-`__int2float_rn` in place of the mantissa add it takes while D <= 256
-(the same keys). Times each C entry (scnt_flat_packed_bf16, and
+accumulators). Times each C entry (scnt_flat_packed_bf16, and
 scnt_flat_packed_int8 with its input preparation; no wrapper) on a cosine
 scan of B = 1024 and 1 queries against a 2^20 x 128 base (B = 1 split into
-slices as the wrapper splits it), in turns (the four copies, then the
-reverse), medians of 20 CUDA-event timings. The second and third copies compute
+slices as the wrapper splits it), in turns (the three copies, then the
+reverse), medians of 20 CUDA-event timings. The last two copies compute
 wrong keys by design: only their times mean anything. Needs a CUDA
 card and nvcc; imports nothing of JAX.
 """
@@ -40,12 +38,10 @@ MIN_ONLY = """#pragma unroll
       for (int j = 0; j < 32; ++j)
         k1[j] = fminf(k1[j], static_cast<float>(acc[j]));
 """
-SMALL_DOT = "  const bool small_dot = D <= 256;"
-ALL_I2F = "  const bool small_dot = false;"
 
 
 def variants(src: str) -> dict[str, str]:
-    for anchor in (MMA_START, MMA_END, FOLD_START, FOLD_END, SMALL_DOT):
+    for anchor in (MMA_START, MMA_END, FOLD_START, FOLD_END):
         if anchor not in src:
             sys.exit("flat_scan.cu changed: update this script's anchors")
     a, b = src.index(FOLD_START), src.index(FOLD_END)
@@ -55,7 +51,6 @@ def variants(src: str) -> dict[str, str]:
         "kernel": src,
         "product only": src[:a] + MIN_ONLY + src[b:],
         "fold only": src[:m0] + NO_MMA + src[m1:],
-        "kernel, I2F": src.replace(SMALL_DOT, ALL_I2F),
     }
 
 

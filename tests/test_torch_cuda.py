@@ -273,51 +273,21 @@ def _flat_scan_inputs(dev, metric, B, N, D, seed):
 
 FLAT_SHAPES = [(64, 2048, 16), (300, 4096, 40), (129, 8192, 128), (7, 1024, 33)]
 KEY_RTOL = 2.0**-10  # one unit of the last mantissa bit a packed key keeps
-F32_U = 2.0**-24  # f32 unit roundoff
-
-
-def _score_part(keys):
-    """Packed keys with their tile ids (the low 13 bits) cleared."""
-    return (keys.view(torch.int32) & ~0x1FFF).view(torch.float32)
 
 
 def _assert_bf16_keys_close(keys, rows, want, qb, base, bsq, metric):
-    """Packed bf16 keys against the plain version's, to a bound that
-    follows from the arithmetic. A score is a sum of n exact f32 terms
-    (a product of two bf16 values is exact in f32): -q_k b_k for cosine
-    and IP (n = D), and bsq with -2 q_k b_k for L2 (n = D + 1). Summed in
-    f32 in any order it lies within gamma_n M of the exact sum, where
-    gamma_n = n u / (1 - n u) and M is the sum of the terms' magnitudes;
-    the kernel (wgmma) and the plain version (torch.matmul) sum in other
-    orders, so a row's two scores differ by at most 2 gamma_n M. The
-    least (and the second least) of a lane's scores then differ by at
-    most the largest such bound over the rows either side picked for the
-    lane, and packing truncates all but the last 13 bits: KEY_RTOL of the
-    key on top. The low 13 bits hold the tile id, not the score: they are
-    cleared on both sides, since two rows of a near tie that the sides
-    order differently carry different ids."""
+    """Packed bf16 keys against the plain version's: their scores within
+    one kept unit (KEY_RTOL) plus the f32 summation bound of the rows
+    either side picked for the lane (packed_bf16_sum_bound: the kernel's
+    wgmma and torch.matmul sum in different orders). The tile ids (the low
+    13 bits) are cleared on both sides: two rows of a near tie that the
+    sides order differently carry different ids."""
     from scintirete_tpu_torch.ops import packed_scan as ps
 
-    B, D = qb.shape
-    lanes = want.shape[1] // 2
-    # per lane: the kernel's two rows and the plain version's two
-    picked = torch.cat([rows, ps.unpack_lane_keys(want)[1]], dim=1).long()
-    qa = qb.float().abs()
-    mag = torch.empty(picked.shape, device=qb.device)
-    step = max(1, (1 << 24) // (picked.shape[1] * D))
-    for s in range(0, B, step):
-        r = picked[s : s + step].clamp_min(0)
-        mag[s : s + step] = (qa[s : s + step, None, :]
-                             * base[r].float().abs()).sum(-1)
-    n = D
-    if metric == 1:
-        n = D + 1
-        mag = 2.0 * mag + bsq.abs()[picked.clamp_min(0)]
-    mag = torch.where(picked >= 0, mag, 0.0)
-    gamma = n * F32_U / (1.0 - n * F32_U)
-    lane_bound = 2.0 * gamma * mag.view(B, 4, lanes).amax(1)
-    score, want_score = _score_part(keys), _score_part(want)
-    tol = KEY_RTOL * want_score.abs() + lane_bound.repeat(1, 2)
+    score, want_score = ps.packed_key_scores(keys), ps.packed_key_scores(want)
+    tol = KEY_RTOL * want_score.abs() + ps.packed_bf16_sum_bound(
+        rows, want, qb, base, bsq, metric
+    )
     diff = (score - want_score).abs()
     bad = diff > tol
     assert not bool(bad.any()), (
@@ -451,8 +421,8 @@ def test_packed_scans_ragged_batches(dev, metric, B):
 @pytest.mark.parametrize("D", [100, 768])
 def test_packed_scans_padded_and_deep(dev, metric, D):
     """D = 100 is padded to 112 columns (int8) and 104 (bf16) for TMA;
-    D = 768 streams the queries through the ring (bf16) and converts its
-    int8 dots with I2F (|dot| may pass 2^22)."""
+    D = 768 streams the queries through the ring (bf16), and its int8
+    dots may pass 2^22 (converted to f32 with rounding)."""
     q, base32, bsq, invalid = _flat_scan_inputs(dev, metric, 70, 4096, D, D)
     _hold_packed_scans(q, base32, bsq, invalid, metric)
 
