@@ -8,13 +8,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
     (nvcc, into build/kernels/) and the C++ link-application library (g++,
     into build/native/), and fails unless the C++ library loaded (so no
     number below comes from its numpy fallback); prints the build seconds,
-    each kernel's registers and spills (-Xptxas -v) and the counts of
-    tensor-core instructions in the SASS (cuobjdump): HGMMA (bf16 wgmma)
-    in the lane scan's, HGMMA and IGMMA (s8 wgmma) in the flat scan's,
-    failing if any of the three is 0;
+    each kernel's registers and spills (-Xptxas -v) and instruction counts
+    in the SASS (cuobjdump): HGMMA (bf16 wgmma) in the lane scan's, HGMMA
+    and IGMMA (s8 wgmma) in the flat scan's, FFMA in the pivot scan's,
+    failing if any of these is 0, and IDP4A (a __dp4a body) in the flat
+    scan's and HMMA (TF32 or half products) in the pivot scan's, failing
+    if either is not 0;
  3. holds each of the seven kernels against its plain torch version on the
-    card, at the shapes of the main path: pivot_entry_scan (B=256, D=128, R=65,536 and a
-    ragged R, 3 metrics, deleted pivots, all deleted), knn_lane_topc
+    card, at the shapes of the main path: pivot_entry_scan (B=256 and 1,
+    D=128, R=65,536, a ragged R and 262,144, 3 metrics, deleted pivots,
+    all deleted; timed through its wrapper and as its C entry alone, and
+    at B=1 and R=262,144 too), knn_lane_topc
     (B=2048, N=1,048,576, D=128, c=64, 3 metrics, partial n_valid) and
     knn_lane_topc_masked (B=2048, N=1,048,576, D=128, c=64, 3 metrics,
     self rows; mask = non-members of the layer-4 membership of a level
@@ -29,7 +33,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
     summation bound of the rows picked); both packed scans also with one
     query (the tile walk split into slices) and with 4,096, the other two
     batch sizes the flat path launches them at, at every metric and int8
-    group, and timed at one query too); the two graph-build
+    group, and timed at one query too; the unpacked int8 scan also at one
+    query and 4,096, bit for bit, and timed at one query); the two graph-build
     scans also at B=1, at B=1,568 (a ragged round of the build) and with
     one tile on the 1M base, and at D=100 (padded to 104 columns) and
     D=768 (queries streamed) on a 65,536-row base, 3 metrics; prints the
@@ -186,6 +191,29 @@ def compare(name, d_k, i_k, d_p, i_p, atol, rtol):
     return err, share
 
 
+def pivot_entry_ms(q, pv, psq, pdel, metric):
+    """The pivot scan's C entry alone (no wrapper): median ms of 50, the
+    inputs already TMA-wide and the outputs allocated once."""
+    import torch
+
+    from scintirete_tpu_torch.ops._ext import kernel
+
+    B, D = q.shape
+    keys = torch.empty(B, dtype=torch.int64, device=q.device)
+    d = torch.empty(B, dtype=torch.float32, device=q.device)
+    i = torch.empty(B, dtype=torch.int32, device=q.device)
+    fn = kernel("pivot_scan")
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (q, pv, psq, pdel, keys, d, i)]
+
+    def run():
+        err = fn(*ptrs, B, pv.shape[0], D, metric, stream)
+        if err:
+            fail(f"pivot_entry_scan C entry: cudaError {err}")
+
+    return median_ms(run, 50)
+
+
 def check_pivot(dev, seed):
     import torch
 
@@ -195,45 +223,63 @@ def check_pivot(dev, seed):
     )
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    B, D = 256, 128
-    worst_err, worst_share, timing = 0.0, 1.0, None
-    for R in (65536, 65536 - 300):
+    D = 128
+    worst_err, worst_share, timing, extra = 0.0, 1.0, None, {}
+    for R in (65536, 65536 - 300, 262144):
         for metric in (1, 2, 3):
-            q = torch.randn(B, D, generator=g, device=dev)
+            q_all = torch.randn(256, D, generator=g, device=dev)
             pv = torch.randn(R, D, generator=g, device=dev)
             if metric == 2:
-                q = q / q.norm(dim=1, keepdim=True)
+                q_all = q_all / q_all.norm(dim=1, keepdim=True)
                 pv = pv / pv.norm(dim=1, keepdim=True)
             psq = (pv * pv).sum(1)
             pdel = torch.zeros(R, device=dev)
             pdel[::7] = 1.0
-            args = (q, pv, psq, pdel, metric)
-            d_k, i_k = pivot_entry_scan(*args)
-            d_p, i_p = pivot_entry_scan_plain(*args)
-            torch.cuda.synchronize()
-            err, share = compare(
-                f"pivot_entry_scan R={R} metric={metric}", d_k, i_k, d_p,
-                i_p, atol=1e-4, rtol=1e-5,
-            )
-            log(f"pivot_entry_scan R={R} metric={metric}: max|dd|={err:.3g} "
-                f"ids equal {share:.6f}")
-            worst_err, worst_share = max(worst_err, err), min(worst_share, share)
-            if R == 65536 and metric == 2:
-                timing = (
-                    median_ms(lambda: pivot_entry_scan(*args), 50),
-                    median_ms(lambda: pivot_entry_scan_plain(*args), 20),
-                    # the product inside alone, as one library call
-                    median_ms(lambda: torch.matmul(q, pv.T), 50),
+            for B in (256, 1):  # a search sub-batch and the single search
+                q = q_all[:B]
+                args = (q, pv, psq, pdel, metric)
+                d_k, i_k = pivot_entry_scan(*args)
+                d_p, i_p = pivot_entry_scan_plain(*args)
+                torch.cuda.synchronize()
+                err, share = compare(
+                    f"pivot_entry_scan B={B} R={R} metric={metric}", d_k, i_k,
+                    d_p, i_p, atol=1e-4, rtol=1e-5,
                 )
+                log(f"pivot_entry_scan B={B} R={R} metric={metric}: "
+                    f"max|dd|={err:.3g} ids equal {share:.6f}")
+                worst_err = max(worst_err, err)
+                worst_share = min(worst_share, share)
+            if metric != 2:
+                continue
+            full = (q_all, pv, psq, pdel, metric)
+            if R == 65536:
+                timing = (
+                    median_ms(lambda: pivot_entry_scan(*full), 50),
+                    median_ms(lambda: pivot_entry_scan_plain(*full), 20),
+                    # the product inside alone, as one library call
+                    median_ms(lambda: torch.matmul(q_all, pv.T), 50),
+                )
+                extra["entry"] = pivot_entry_ms(q_all, pv, psq, pdel, metric)
                 # q, pivots, their norms and tombstones in; (d, i) out
-                nbytes = 4 * (B * D + R * D + 2 * R + 2 * B)
-                bound = bound_ms(2.0 * B * R * D, "f32", nbytes)
-        d_k, i_k = pivot_entry_scan(q, pv, psq, torch.ones(R, device=dev), 1)
-        if not (bool(torch.isinf(d_k).all()) and bool((i_k == -1).all())):
+                nbytes = 4 * (256 * D + R * D + 2 * R + 2 * 256)
+                bound = bound_ms(2.0 * 256 * R * D, "f32", nbytes)
+                extra["B=1"] = median_ms(
+                    lambda: pivot_entry_scan(q_all[:1], *full[1:]), 50
+                )
+            elif R == 262144:
+                extra["R=262144"] = median_ms(
+                    lambda: pivot_entry_scan(*full), 50
+                )
+        d_k, i_k = pivot_entry_scan(q_all, pv, psq, torch.ones(R, device=dev), 1)
+        if not (bool(torch.isinf(d_k).all()) and bool((d_k > 0).all())
+                and bool((i_k == -1).all())):
             fail("pivot_entry_scan: all-deleted case must give (+inf, -1)")
     log(f"pivot_entry_scan B=256 R=65536 D=128 cosine: kernel "
-        f"{timing[0]:.4f} ms, plain {timing[1]:.4f} ms, matmul "
-        f"{timing[2]:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+        f"{timing[0]:.4f} ms through its wrapper, C entry alone "
+        f"{extra['entry']:.4f} ms, plain {timing[1]:.4f} ms, matmul "
+        f"{timing[2]:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}); kernel "
+        f"at B=1 {extra['B=1']:.4f} ms, at R=262144 {extra['R=262144']:.4f} "
+        f"ms; ids equal {worst_share:.6f} at worst")
     return worst_err, timing, bound
 
 
@@ -651,13 +697,12 @@ def check_lane_int8(dev, inputs):
 
     name = "lane_topk_scan_int8"
     q, base32, invalid = inputs
-    worst, timing = 0.0, None
+    worst, timing, one_ms = 0.0, None, None
     for metric in (1, 2, 3):
         qs, b32 = scan_form(q, metric), scan_form(base32, metric)
         base8, scale = ps.quantize_rows(b32)
         bsq = (b32 * b32).sum(1)
         args = (qs, base8, scale, bsq, invalid, metric)
-        d, i = ps.lane_topk_scan_int8(*args)
         q8, q_scale = ps.quantize_rows(qs)
 
         def plain():
@@ -665,25 +710,44 @@ def check_lane_int8(dev, inputs):
                 q8, q_scale, base8, scale, bsq, invalid, metric
             )
 
-        want_d, want_i = plain()
-        torch.cuda.synchronize()
-        # exact product, no contraction: equal, not merely close
-        err, share = compare(f"{name} metric={metric}", d, i, want_d, want_i,
-                             atol=0.0, rtol=0.0)
-        worst = max(worst, err)
-        if share < 1.0:
-            fail(f"{name} metric={metric}: ids differ from the plain version")
-        no_invalid_row(name, i, invalid)
-        log(f"{name} metric={metric}: scores and ids equal")
+        # the path's batch, then one query and 4,096 (one full walk each
+        # block; the walk is never split)
+        q_all, sizes = other_batches(dev, metric)
+        q8_all, qs_all = ps.quantize_rows(q_all)
+        want_all = ps.lane_topk_scan_int8_plain(
+            q8_all, qs_all, base8, scale, bsq, invalid, metric
+        )
+        for qx, (want_d, want_i) in (
+            (qs, plain()),
+            *((q_all[:b], (want_all[0][:b], want_all[1][:b])) for b in sizes),
+        ):
+            d, i = ps.lane_topk_scan_int8(qx, *args[1:])
+            torch.cuda.synchronize()
+            b = qx.shape[0]
+            # exact product, no contraction: equal bit for bit
+            if not (torch.equal(d.view(torch.int32), want_d.view(torch.int32))
+                    and torch.equal(i, want_i)):
+                fail(f"{name} metric={metric} B={b}: "
+                     f"{int((d.view(torch.int32) != want_d.view(torch.int32)).sum())}"
+                     f" scores and {int((i != want_i).sum())} rows differ from "
+                     f"the plain version")
+            fin = torch.isfinite(want_d)
+            worst = max(worst, float((d - want_d).abs()[fin].max()))
+            no_invalid_row(name, i, invalid)
+            log(f"{name} metric={metric} B={b}: scores and rows equal bit for "
+                f"bit")
         if metric == 2:
             timing = (
                 median_ms(lambda: ps.lane_topk_scan_int8(*args), 10),
                 median_ms(plain, 2),
                 int_mm_ms(q8, base8),
             )
+            one_ms = median_ms(
+                lambda: ps.lane_topk_scan_int8(q_all[:1], *args[1:]), 10
+            )
     nbytes = 4 * FLAT_B * DIM + FLAT_N * DIM + 12 * FLAT_N + 16 * FLAT_B * 1024
     bound = bound_ms(2.0 * FLAT_B * FLAT_N * DIM, "int8", nbytes)
-    log_timing(name, "torch._int_mm", timing, bound)
+    log_timing(name, "torch._int_mm", timing, bound, one_ms)
     return worst, timing, bound
 
 
@@ -1236,19 +1300,26 @@ def main() -> None:
         for line in open(f"{path}.log"):
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    # tensor-core instructions: bf16 wgmma is HGMMA, s8 wgmma IGMMA
-    for lib, opcodes in (("lane_scan", ("HGMMA",)),
-                         ("flat_scan", ("HGMMA", "IGMMA"))):
-        for opcode in opcodes:
-            count = sass_count(paths[lib], opcode)
-            if count is None:
-                log(f"{lib}: no cuobjdump in the toolkit, {opcode} count "
-                    f"not taken")
-                continue
-            log(f"{lib}: {count} {opcode} instructions in its SASS "
-                f"(cuobjdump -sass)")
-            if count == 0:
-                fail(f"{lib} has no {opcode} instruction")
+    # tensor-core instructions: bf16 wgmma is HGMMA, s8 wgmma IGMMA; the
+    # flat scans keep no __dp4a body (IDP4A), and the pivot scan's f32
+    # products stay off the tensor cores (no HMMA: no TF32)
+    for lib, opcode, want in (("lane_scan", "HGMMA", True),
+                              ("flat_scan", "HGMMA", True),
+                              ("flat_scan", "IGMMA", True),
+                              ("flat_scan", "IDP4A", False),
+                              ("pivot_scan", "HMMA", False),
+                              ("pivot_scan", "FFMA", True)):
+        count = sass_count(paths[lib], opcode)
+        if count is None:
+            log(f"{lib}: no cuobjdump in the toolkit, {opcode} count "
+                f"not taken")
+            continue
+        log(f"{lib}: {count} {opcode} instructions in its SASS "
+            f"(cuobjdump -sass)")
+        if want and count == 0:
+            fail(f"{lib} has no {opcode} instruction")
+        if not want and count > 0:
+            fail(f"{lib} must have no {opcode} instruction")
 
     t0 = time.perf_counter()
     if load_native() is None:

@@ -14,8 +14,11 @@
 //   bsq - 2 dots or -dots, invalid rows -> 3e38, NaN -> 3e38, clamp to
 //   +-3e38, pack per tile, same fold.
 // - lane_topk_scan_int8 (body _lane_scan_kernel_int8): entry
-//   scnt_flat_lane_int8. The int8 product with the unpacked best-two fold
-//   (_fold_best_two) on (score, row id); invalid rows score +inf.
+//   scnt_flat_lane_int8. The same s8 product with the unpacked best-two
+//   fold (_fold_best_two) on (score, tile); score bsq - (2 dot) (qs bs) for
+//   L2 or (-dot) bs otherwise, with the caller's raw scales and norms (no
+//   clamp); invalid rows score +inf in the reference, NaN here (the
+//   prepared column term is NaN), and the strict-< fold drops either.
 // (lane_topk_scan, the unpacked bf16 scan, is the third entry point of
 // lane_scan.cu: its body is the masked graph-build scan without a self row.)
 //
@@ -30,9 +33,9 @@
 // Lane contract, shared with lane_scan.cu: base row r folds into lane
 // r mod 1024. Outputs are [B, 2048]: best in columns [0, 1024), second best
 // in [1024, 2048); the i32 output holds the row read back from the key (-1
-// where key >= 1.5e38) or the folded row id.
+// where key >= 1.5e38) or from the folded tile id (-1 where empty).
 //
-// What bounds the packed scans on an H100: the products and the fold's
+// What bounds the scans on an H100: the products and the fold's
 // issue, about equally (scripts/torch_flat_split.py times copies without
 // either). 1024 queries against 1M rows of depth 128 are 0.27 T operations
 // (0.28 ms of bf16, 0.14 ms of int8 tensor-core peak) and 1.07 G scores to
@@ -40,7 +43,7 @@
 // the base streams 128 MB (int8) or 256 MB (bf16) from memory once and
 // then out of L2 once per query tile.
 //
-// What the packed design does about it (the shape of lane_scan.cu's):
+// What the design does about it (the shape of lane_scan.cu's):
 // - the products run on the tensor cores, both operands in shared memory
 //   with the 128-byte swizzle: bf16 wgmma m64n64k16 with f32 sums, or s8
 //   wgmma m64n64k32 with s32 sums (exact; TMA copies the int8 rows as
@@ -61,13 +64,19 @@
 //   wgmma accumulator element sits at the same (query, lane) tile after
 //   tile, and the key carries its tile id, so the state is (k1, k2) and,
 //   for int8 groups of 2 or 4 tiles, the group's running minimum with its
-//   tile. The two warpgroups run in lockstep: letting them take turns on
+//   tile. The unpacked int8 scan keeps lane_scan.cu's state instead: (d1,
+//   d2) and two 16-bit tile ids in one register (hopper_common.cuh
+//   fold_best_two), so a launch takes at most 65,535 tiles. The metric and
+//   the mode (bf16 keys, int8 keys, int8 keys of tile groups, int8 lanes)
+//   are template arguments. The two warpgroups run in lockstep: letting them take turns on
 //   the tensor cores (named barriers), or keeping two tiles in flight per
 //   warpgroup, made ptxas serialize the wgmma (C7520, C7514) and the
 //   kernel slower;
-// - the int8 entry makes the scan's inputs itself (packed_int8_inputs:
-//   the query quantization and the [N] masks and clamps) in two launches,
-//   where the wrapper's ~20 small torch ops left the card waiting ~0.5 ms;
+// - the int8 entries make the scan's inputs themselves in two launches
+//   (the query quantization of quantize_rows and the [N] column terms:
+//   packed_int8_inputs' masks and clamps for the packed scan, the raw
+//   scales and norms with the mask as NaN for the unpacked one), where the
+//   wrapper's ~20 small torch ops left the card waiting ~0.5 ms;
 // - the s32 -> f32 conversion of an int8 dot is I2F (round to nearest).
 //   An integer add into the mantissa of 1.5 * 2^23 and a subtract (exact
 //   while |dot| <= 2^22) was slower on an H100: 0.91-0.92 ms against
@@ -80,19 +89,15 @@
 //   so a lane's (k1, k2) are just its two least keys, whatever the order of
 //   the fold: the slices' pairs merge with the same min / max in a second
 //   small pass and give the same bits as one walk. (The unpacked fold
-//   breaks ties between equal scores by tile order, so lane_scan.cu does
-//   not split.)
+//   breaks ties between equal scores by tile order, so the unpacked int8
+//   scan, as lane_scan.cu, does not split: at small B a launch takes a
+//   full walk's time.)
 // TMA needs rows of whole 16-byte units and 16-byte aligned starts: int8
 // D % 16 == 0, bf16 D % 8 == 0; the wrappers pad with zero columns, which
-// change no dot, no norm and no int8 scale.
-//
-// lane_topk_scan_int8 keeps the CUDA-core body below (tile_common.cuh's
-// block layout, __dp4a): 64 queries x 64 lanes a block, 4 x 4 scores a
-// thread, staged through shared memory. Score arithmetic everywhere uses
+// change no dot, no norm and no int8 scale. Score arithmetic uses
 // __fmul_rn / __fsub_rn so no multiply is contracted into an FMA: the int8
 // scans then equal their plain versions bit for bit.
 #include "hopper_common.cuh"
-#include "tile_common.cuh"
 
 namespace {
 
@@ -119,8 +124,9 @@ __device__ __forceinline__ int key_row(float key, int lane) {
              : -1;
 }
 
-// ------------------- packed scans: TMA + wgmma -------------------
-namespace packed {
+// What a scan folds: packed keys (bf16; int8, one tile or a group a key),
+// or the unpacked lanes of lane_topk_scan_int8.
+enum Mode : int { kBf16Keys, kInt8Keys, kInt8Groups, kInt8Lanes };
 
 using namespace hopper;
 
@@ -170,26 +176,29 @@ struct Acc<false> { using T = float; };
 template <>
 struct Acc<true> { using T = int; };
 
-// kInt8: q / base int8, qs2 [B] = 2 x the clamped query scale, col_a / col_b
-// = bs / bsq [N] (masked and clamped by the wrapper); otherwise q / base
-// bf16, col_a / col_b = bsq / invalid [N]. The column arrays are copied
-// per tile beside the tile's last chunk (1-D bulk copies), 16-byte
-// aligned. kGrouped: int8 groups of `group` > 1 tiles. Block (x, y, z)
-// = (query tile, lane range, slice of the tile walk);
-// with one slice the block writes keys and rows, with more it writes its
-// keys to ws [slices, B, 2048] for merge_slices.
-template <bool kInt8, bool kL2Metric, bool kGrouped>
+// int8 modes: q / base int8, col_a / col_b = bs / bsq [N] as prep_columns
+// makes them, qs [B] = 2 x the clamped query scale (keys) or the query
+// scale (lanes); kBf16Keys: q / base bf16, col_a / col_b = bsq / invalid
+// [N]. The column arrays are copied per tile beside the tile's last chunk
+// (1-D bulk copies), 16-byte aligned. kInt8Groups: groups of `group` > 1
+// tiles. Block (x, y, z) = (query tile, lane range, slice of the tile
+// walk); with one slice the block writes keys (or scores) and rows, with
+// more it writes its keys to ws [slices, B, 2048] for merge_slices.
+template <int kMode, bool kL2Metric>
 __global__ void __launch_bounds__(kThreads, 1)
-packed_scan_kernel(const __grid_constant__ CUtensorMap q_map,  // [B, D]
-                   const __grid_constant__ CUtensorMap b_map,  // [N, D]
-                   const float* __restrict__ qs2,
-                   const float* __restrict__ col_a,
-                   const float* __restrict__ col_b,
-                   float* __restrict__ out_f,  // [B, 2048]
-                   int* __restrict__ out_i,    // [B, 2048]
-                   float* __restrict__ ws,     // [slices, B, 2048] or nullptr
-                   int B, int row_bytes, int tiles, int group,
-                   int slice_tiles) {
+flat_scan_kernel(const __grid_constant__ CUtensorMap q_map,  // [B, D]
+                 const __grid_constant__ CUtensorMap b_map,  // [N, D]
+                 const float* __restrict__ qs,
+                 const float* __restrict__ col_a,
+                 const float* __restrict__ col_b,
+                 float* __restrict__ out_f,  // [B, 2048]
+                 int* __restrict__ out_i,    // [B, 2048]
+                 float* __restrict__ ws,     // [slices, B, 2048] or nullptr
+                 int B, int row_bytes, int tiles, int group,
+                 int slice_tiles) {
+  constexpr bool kInt8 = kMode != kBf16Keys;
+  constexpr bool kGrouped = kMode == kInt8Groups;
+  constexpr bool kUnpacked = kMode == kInt8Lanes;
   using AccT = typename Acc<kInt8>::T;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -268,17 +277,22 @@ packed_scan_kernel(const __grid_constant__ CUtensorMap q_map,  // [B, D]
     const int colx = 2 * (l & 3);
     float qsa = 0.f, qsb = 0.f;
     if (kInt8 && kL2Metric) {
-      qsa = qa < B ? qs2[qa] : 0.f;
-      qsb = qb < B ? qs2[qb] : 0.f;
+      qsa = qa < B ? qs[qa] : 0.f;
+      qsb = qb < B ? qs[qb] : 0.f;
     }
 
+    // keys: the lane's two least keys; lanes: its (d1, d2) scores
     float k1[32], k2[32];
     float m[kGrouped ? 32 : 1];   // the group's running minimum ...
     int mi[kGrouped ? 32 : 1];    // ... and its tile
+    uint32_t tp[kUnpacked ? 32 : 1];  // lanes: tile ids of d1 (low), d2 (high)
+    const float none = kUnpacked ? __int_as_float(0x7f800000) : kSentinel;
 #pragma unroll
-    for (int j = 0; j < 32; ++j) { k1[j] = kSentinel; k2[j] = kSentinel; }
+    for (int j = 0; j < 32; ++j) { k1[j] = none; k2[j] = none; }
 #pragma unroll
     for (int j = 0; j < (kGrouped ? 32 : 1); ++j) { m[j] = 0.f; mi[j] = 0; }
+#pragma unroll
+    for (int j = 0; j < (kUnpacked ? 32 : 1); ++j) tp[j] = 0xffffffffu;
     if (resident && t0 < t1) mbar_wait(qbar, 0);
     const uint32_t q_res = smem_u32(smem + L.query) + wg * kHalfQueryBytes;
 
@@ -342,7 +356,14 @@ packed_scan_kernel(const __grid_constant__ CUtensorMap q_map,  // [B, D]
           for (int e = 0; e < 2; ++e) {
             const int j = 4 * i + 2 * e + h;  // row qa (e = 0) or qb
             float s;
-            if constexpr (kInt8) {
+            if constexpr (kUnpacked) {
+              // the reference's rounding, step for step (masked: NaN)
+              const float dot = __int2float_rn(acc[j]);
+              s = kL2Metric
+                      ? __fsub_rn(vb, __fmul_rn(__fmul_rn(2.f, dot),
+                                                __fmul_rn(e ? qsb : qsa, va)))
+                      : __fmul_rn(-dot, va);
+            } else if constexpr (kInt8) {
               const float w = kL2Metric ? __fmul_rn(e ? qsb : qsa, va) : va;
               const float dot = __int2float_rn(acc[j]);
               s = __fsub_rn(vb, __fmul_rn(dot, w));
@@ -353,7 +374,9 @@ packed_scan_kernel(const __grid_constant__ CUtensorMap q_map,  // [B, D]
               // becomes the sentinel, and only then is the low end clamped
               s = fmaxf(fminf(s, kSentinel), -kSentinel);
             }
-            if constexpr (kGrouped) {
+            if constexpr (kUnpacked) {
+              fold_best_two(k1[j], k2[j], tp[j], s, static_cast<uint32_t>(t));
+            } else if constexpr (kGrouped) {
               if (first || s < m[j]) mi[j] = t;
               m[j] = first ? s : fminf(s, m[j]);
               if (close) fold_key(k1[j], k2[j], pack_key(m[j], mi[j]));
@@ -377,10 +400,18 @@ packed_scan_kernel(const __grid_constant__ CUtensorMap q_map,  // [B, D]
         *reinterpret_cast<float2*>(out_f + o) = make_float2(k1[j], k1[j + 1]);
         *reinterpret_cast<float2*>(out_f + o + kLanes) =
             make_float2(k2[j], k2[j + 1]);
-        *reinterpret_cast<int2*>(out_i + o) =
-            make_int2(key_row(k1[j], lane), key_row(k1[j + 1], lane + 1));
-        *reinterpret_cast<int2*>(out_i + o + kLanes) =
-            make_int2(key_row(k2[j], lane), key_row(k2[j + 1], lane + 1));
+        if constexpr (kUnpacked) {
+          const uint32_t ta = tp[j], tb = tp[j + 1];
+          *reinterpret_cast<int2*>(out_i + o) = make_int2(
+              lane_row(ta & 0xffffu, lane), lane_row(tb & 0xffffu, lane + 1));
+          *reinterpret_cast<int2*>(out_i + o + kLanes) =
+              make_int2(lane_row(ta >> 16, lane), lane_row(tb >> 16, lane + 1));
+        } else {
+          *reinterpret_cast<int2*>(out_i + o) =
+              make_int2(key_row(k1[j], lane), key_row(k1[j + 1], lane + 1));
+          *reinterpret_cast<int2*>(out_i + o + kLanes) =
+              make_int2(key_row(k2[j], lane), key_row(k2[j + 1], lane + 1));
+        }
       } else {
         const int64_t o =
             (static_cast<int64_t>(blockIdx.z) * B + b) * (2 * kLanes) + lane;
@@ -415,19 +446,20 @@ __global__ void merge_slices(const float* __restrict__ ws,
   out_i[o + kLanes] = key_row(k2, lane);
 }
 
-// The int8 scan's inputs, as packed_int8_inputs (ops/packed_scan.py) makes
-// them, op for op (equal bit for bit), in two launches instead of its ~20
-// small torch ops. Queries, one warp per row (quantize_rows): scale =
-// amax|v| / 127, q = round-half-even(v / max(scale, 1e-30)) clamped to
-// +-127 (0 where scale is not > 0, and where the quotient is NaN), zero in
-// the padding columns [D, Dp); qs2 = 2 x the scale with NaN -> 0 and
-// clamped to [0, 5e14].
+// The int8 scans' inputs, op for op as the wrappers' torch versions make
+// them (equal bit for bit), in two launches instead of ~20 small torch ops.
+// Queries, one warp per row (quantize_rows): scale = amax|v| / 127,
+// q = round-half-even(v / max(scale, 1e-30)) clamped to +-127 (0 where
+// scale is not > 0, and where the quotient is NaN), zero in the padding
+// columns [D, Dp). Packed (packed_int8_inputs): qs = 2 x the scale with
+// NaN -> 0 and clamped to [0, 5e14]; lanes: qs = the scale itself.
 constexpr float kScaleCap = 5.0e14f;
 constexpr float kBsqCap = 7.0e37f;
 
+template <bool kUnpacked>
 __global__ void prep_queries_int8(const float* __restrict__ q, int B, int D,
                                   int Dp, int8_t* __restrict__ q8,
-                                  float* __restrict__ qs2) {
+                                  float* __restrict__ qs) {
   const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int l = threadIdx.x & 31;
   if (row >= B) return;
@@ -455,14 +487,22 @@ __global__ void prep_queries_int8(const float* __restrict__ q, int B, int D,
     out[k] = static_cast<int8_t>(static_cast<int>(r));
   }
   if (l == 0) {
-    const float sc = scale != scale ? 0.f : scale;  // +inf clamps to the cap
-    qs2[row] = __fmul_rn(2.f, fminf(fmaxf(sc, 0.f), kScaleCap));
+    if constexpr (kUnpacked) {
+      qs[row] = scale;
+    } else {
+      const float sc = scale != scale ? 0.f : scale;  // +inf clamps to the cap
+      qs[row] = __fmul_rn(2.f, fminf(fmaxf(sc, 0.f), kScaleCap));
+    }
   }
 }
 
-// The [N] column terms: bs = 0 where the row is invalid, else the scale
-// with NaN -> 0 clamped to [0, 5e14]; bsq = 3e38 where invalid, else (L2)
-// the norm with NaN -> 7e37 clamped to +-7e37, or 0.
+// The [N] column terms. Packed: bs = 0 where the row is invalid, else the
+// scale with NaN -> 0 clamped to [0, 5e14]; bsq = 3e38 where invalid, else
+// (L2) the norm with NaN -> 7e37 clamped to +-7e37, or 0. Lanes: the raw
+// scale and (L2) norm, or 0, with NaN in the term the score reads last
+// (bsq for L2, bs otherwise) where the row is invalid, so that its score
+// is NaN, which the strict-< fold drops as it drops the reference's +inf.
+template <bool kUnpacked>
 __global__ void prep_columns_int8(const float* __restrict__ scale,
                                   const float* __restrict__ sq,
                                   const float* __restrict__ invalid,
@@ -472,17 +512,21 @@ __global__ void prep_columns_int8(const float* __restrict__ scale,
   if (i >= N) return;
   const bool bad = invalid[i] > 0.5f;
   float b = scale[i];
-  b = b != b ? 0.f : fminf(fmaxf(b, 0.f), kScaleCap);
-  float n = 0.f;
-  if (l2) {
-    n = sq[i];
-    n = n != n ? kBsqCap : fminf(fmaxf(n, -kBsqCap), kBsqCap);
+  float n = l2 ? sq[i] : 0.f;
+  if constexpr (kUnpacked) {
+    const float nan = __int_as_float(0x7fffffff);
+    if (bad && l2) n = nan;
+    if (bad && !l2) b = nan;
+  } else {
+    b = b != b ? 0.f : fminf(fmaxf(b, 0.f), kScaleCap);
+    if (l2) n = n != n ? kBsqCap : fminf(fmaxf(n, -kBsqCap), kBsqCap);
+    if (bad) { b = 0.f; n = kSentinel; }
   }
-  bs[i] = bad ? 0.f : b;
-  bsq[i] = bad ? kSentinel : n;
+  bs[i] = b;
+  bsq[i] = n;
 }
 
-// what one launch of the packed kernel takes besides its template
+// what one launch of the scan kernel takes besides its template
 struct Launch {
   CUtensorMap q_map, b_map;
   const void *qs, *col_a, *col_b;
@@ -491,9 +535,9 @@ struct Launch {
   cudaStream_t stream;
 };
 
-template <bool kInt8, bool kL2Metric, bool kGrouped>
+template <int kMode, bool kL2Metric>
 cudaError_t start(const Launch& a) {
-  auto kernel = packed_scan_kernel<kInt8, kL2Metric, kGrouped>;
+  auto kernel = flat_scan_kernel<kMode, kL2Metric>;
   const int smem =
       static_cast<int>(
           layout_for((a.row_bytes + kRowBytes - 1) / kRowBytes).total) + 1024;
@@ -511,20 +555,20 @@ cudaError_t start(const Launch& a) {
   return cudaGetLastError();
 }
 
-template <bool kInt8, bool kL2Metric>
-cudaError_t start_for(const Launch& a) {
-  if constexpr (kInt8) {
-    if (a.group > 1) return start<true, kL2Metric, true>(a);
-  }
-  return start<kInt8, kL2Metric, false>(a);
+template <int kMode>
+cudaError_t start_for(const Launch& a, int metric) {
+  return metric == kL2 ? start<kMode, true>(a) : start<kMode, false>(a);
 }
 
-template <bool kInt8>
+// kMode is kBf16Keys, kInt8Keys (groups of one tile or more) or kInt8Lanes.
+template <int kMode>
 int launch(const void* q, const void* qs, const void* base, const void* bs,
            const void* bsq, const void* invalid, void* out_f, void* out_i,
            void* ws, int B, int D, long long N, int tiles, int group,
            int slices, int metric, void* stream) {
   if (B <= 0) return 0;
+  constexpr bool kInt8 = kMode != kBf16Keys;
+  constexpr bool kKeys = kMode != kInt8Lanes;
   const int elem = kInt8 ? 1 : 2;
   Launch a;
   // the column arrays are copied 64 rows (256 bytes) at a time; TMA takes
@@ -533,8 +577,9 @@ int launch(const void* q, const void* qs, const void* base, const void* bs,
   a.col_a = kInt8 ? bs : bsq;
   a.col_b = kInt8 ? bsq : invalid;
   if (D <= 0 || (D * elem) % 16 != 0 || tiles < 0 ||
-      tiles > kMaxTiles || group < 1 || tiles % group != 0 || slices < 1 ||
-      (slices > 1 && ws == nullptr) || (!kInt8 && group != 1) ||
+      tiles > (kKeys ? kMaxTiles : kMaxLaneTiles) || group < 1 ||
+      tiles % group != 0 || slices < 1 || (slices > 1 && ws == nullptr) ||
+      (kMode != kInt8Keys && group != 1) || (!kKeys && slices != 1) ||
       N < static_cast<long long>(tiles) * kLanes ||
       reinterpret_cast<uintptr_t>(a.col_a) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(a.col_b) % 16 != 0)
@@ -563,8 +608,9 @@ int launch(const void* q, const void* qs, const void* base, const void* bs,
   a.tiles = tiles;
   a.group = group;
   a.stream = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = metric == kL2 ? start_for<kInt8, true>(a)
-                                        : start_for<kInt8, false>(a);
+  const cudaError_t err =
+      kMode == kInt8Keys && group > 1 ? start_for<kInt8Groups>(a, metric)
+                                      : start_for<kMode>(a, metric);
   if (err != cudaSuccess || a.slices == 1) return static_cast<int>(err);
   const int64_t n = static_cast<int64_t>(B) * kLanes;
   merge_slices<<<static_cast<unsigned>((n + 255) / 256), 256, 0, a.stream>>>(
@@ -573,148 +619,36 @@ int launch(const void* q, const void* qs, const void* base, const void* bs,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace packed
-
-// --------- lane_topk_scan_int8: the CUDA-core body (__dp4a) ---------
-namespace lane8 {
-
-using namespace scnt;
-
-constexpr int KW = 16;  // 32-bit words (4 int8 each) of depth per slice
-
-// Stage rows [row0, row0 + 64) x depth bytes [k0, k0 + 4 KW) of a row-major
-// int8 [nrows, D] matrix into s[KW][64] as packed words (4 consecutive
-// depth values each). Rows >= nrows and depth >= D read as 0.
-__device__ __forceinline__ void stage_i8(uint32_t (*s)[TB], const int8_t* m,
-                                         int64_t row0, int64_t nrows, int D,
-                                         int k0, bool aligned) {
-  const int t = threadIdx.x;
-  const int r = t & 63;
-  const int w0 = (t >> 6) * 4;  // 0, 4, 8, 12: four threads cover KW
-  const int64_t row = row0 + r;
-  const int k = k0 + w0 * 4;
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
-  if (row < nrows && k < D) {
-    const int8_t* p = m + row * D + k;
-    if (aligned && D - k >= 16) {
-      const uint4 a = *reinterpret_cast<const uint4*>(p);
-      w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        if (k + j < D)
-          w[j >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(p[j]))
-                       << (8 * (j & 3));
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) s[w0 + j][r] = w[j];
+// An int8 scan from the caller's arrays: q [B, D] f32 (quantized here),
+// base8 [N, Dp] int8 (Dp % 16 == 0, zero past D), base_scale / base_sq /
+// invalid [N] f32 as the caller keeps them; q8 [B, Dp] i8, qs [B] f32 and
+// cols [2, N] f32 are scratch for the prepared inputs.
+template <bool kUnpacked>
+int int8_scan(const void* q, const void* base8, const void* base_scale,
+              const void* base_sq, const void* invalid, void* q8, void* qs,
+              void* cols, void* out_f, void* out_i, void* ws, int B, int D,
+              int Dp, long long N, int tiles, int group, int slices,
+              int metric, void* stream) {
+  if (B <= 0) return 0;
+  if (D <= 0 || D > Dp || N < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* bs = static_cast<float*>(cols);
+  float* bsq = bs + N;
+  prep_queries_int8<kUnpacked><<<(B + 7) / 8, 256, 0, st>>>(
+      static_cast<const float*>(q), B, D, Dp, static_cast<int8_t*>(q8),
+      static_cast<float*>(qs));
+  if (N > 0)
+    prep_columns_int8<kUnpacked><<<static_cast<unsigned>((N + 255) / 256), 256,
+                                0, st>>>(
+        static_cast<const float*>(base_scale),
+        static_cast<const float*>(base_sq),
+        static_cast<const float*>(invalid), N, metric == kL2, bs, bsq);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch<kUnpacked ? kInt8Lanes : kInt8Keys>(
+      q8, qs, base8, bs, bsq, nullptr, out_f, out_i, ws, B, Dp, N, tiles,
+      group, slices, metric, stream);
 }
-
-// acc[i][j] += s8 dot over one staged slice (4 depth values per __dp4a).
-__device__ __forceinline__ void mma_slice_i8(uint32_t (*sq)[TQ],
-                                             uint32_t (*sb)[TB], int ty,
-                                             int tx, int acc[4][4]) {
-#pragma unroll
-  for (int k = 0; k < KW; ++k) {
-    const uint4 a = *reinterpret_cast<const uint4*>(&sq[k][ty * 4]);
-    const uint4 b = *reinterpret_cast<const uint4*>(&sb[k][tx * 4]);
-    const int av[4] = {static_cast<int>(a.x), static_cast<int>(a.y),
-                       static_cast<int>(a.z), static_cast<int>(a.w)};
-    const int bv[4] = {static_cast<int>(b.x), static_cast<int>(b.y),
-                       static_cast<int>(b.z), static_cast<int>(b.w)};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// q / base int8, qs [B] the query scale, bs [N] the per-row scale, bsq /
-// invalid [N]. Tiles are folded in order with strict < (_fold_best_two).
-__global__ void __launch_bounds__(THREADS)
-lane_int8_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs,
-                 const int8_t* __restrict__ base,
-                 const float* __restrict__ bs, const float* __restrict__ bsq,
-                 const float* __restrict__ invalid,
-                 float* __restrict__ out_f,  // [B, 2048]
-                 int* __restrict__ out_i,    // [B, 2048]
-                 int B, int D, int64_t N, int tiles, int metric,
-                 bool aligned) {
-  __shared__ __align__(16) uint32_t smem_q[KC][TQ];
-  __shared__ __align__(16) uint32_t smem_b[KC][TB];
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int lane0 = blockIdx.x * TB;
-  const int q0 = blockIdx.y * TQ;
-  const float inf = __int_as_float(0x7f800000);
-
-  float qscale[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int b = q0 + ty * 4 + i;
-    qscale[i] = b < B ? qs[b] : 0.f;
-  }
-  // (d1, i1, d2, i2) of each of the thread's 4 x 4 (query, lane) pairs
-  float v1[4][4], v2[4][4];
-  int r1[4][4], r2[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v1[i][j] = inf; v2[i][j] = inf; r1[i][j] = -1; r2[i][j] = -1;
-    }
-
-  for (int t = 0; t < tiles; ++t) {
-    const int64_t row0 = static_cast<int64_t>(t) * kLanes + lane0;
-    int acc[4][4] = {};
-    for (int k0 = 0; k0 < D; k0 += 4 * KW) {
-      stage_i8(smem_q, q, q0, B, D, k0, aligned);
-      stage_i8(smem_b, base, row0, N, D, k0, aligned);
-      __syncthreads();
-      mma_slice_i8(smem_q, smem_b, ty, tx, acc);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = static_cast<int>(row0) + tx * 4 + j;
-      const bool in_base = r < N;
-      const float scale = in_base ? bs[r] : 0.f;
-      const float br = metric == kL2 && in_base ? bsq[r] : 0.f;
-      const bool bad = !in_base || invalid[r] > 0.5f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float dot = __int2float_rn(acc[i][j]);
-        float s = metric == kL2
-                      ? __fsub_rn(br, __fmul_rn(__fmul_rn(2.0f, dot),
-                                                __fmul_rn(qscale[i], scale)))
-                      : __fmul_rn(-dot, scale);
-        if (bad) s = inf;
-        // _fold_best_two: the displaced best becomes a second-best candidate
-        const bool promoted = s < v1[i][j];
-        const float mid_d = promoted ? v1[i][j] : s;
-        const int mid_i = promoted ? r1[i][j] : r;
-        if (promoted) { v1[i][j] = s; r1[i][j] = r; }
-        if (mid_d < v2[i][j]) { v2[i][j] = mid_d; r2[i][j] = mid_i; }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int b = q0 + ty * 4 + i;
-    if (b >= B) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int64_t o =
-          static_cast<int64_t>(b) * (2 * kLanes) + lane0 + tx * 4 + j;
-      out_f[o] = v1[i][j]; out_i[o] = r1[i][j];
-      out_f[o + kLanes] = v2[i][j]; out_i[o + kLanes] = r2[i][j];
-    }
-  }
-}
-
-}  // namespace lane8
 
 }  // namespace
 
@@ -727,15 +661,12 @@ extern "C" int scnt_flat_packed_bf16(const void* q, const void* base,
                                      int B, int D, long long N, int tiles,
                                      int group, int slices, int metric,
                                      void* stream) {
-  return packed::launch<false>(q, nullptr, base, nullptr, bsq, invalid,
-                               out_f, out_i, ws, B, D, N, tiles, group,
-                               slices, metric, stream);
+  return launch<kBf16Keys>(q, nullptr, base, nullptr, bsq, invalid, out_f,
+                           out_i, ws, B, D, N, tiles, group, slices, metric,
+                           stream);
 }
 
-// int8: q [B, D] f32 (quantized here), base8 [N, Dp] int8 (Dp % 16 == 0,
-// zero past D), base_scale / base_sq / invalid [N] f32 as the caller keeps
-// them; q8 [B, Dp] i8, qs2 [B] f32 and cols [2, N] f32 are scratch for the
-// prepared inputs (packed_int8_inputs).
+// int8: the arguments of int8_scan; groups of `group` tiles.
 extern "C" int scnt_flat_packed_int8(const void* q, const void* base8,
                                      const void* base_scale,
                                      const void* base_sq, const void* invalid,
@@ -744,43 +675,23 @@ extern "C" int scnt_flat_packed_int8(const void* q, const void* base8,
                                      int B, int D, int Dp, long long N,
                                      int tiles, int group, int slices,
                                      int metric, void* stream) {
-  if (B <= 0) return 0;
-  if (D <= 0 || D > Dp || N < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* bs = static_cast<float*>(cols);
-  float* bsq = bs + N;
-  packed::prep_queries_int8<<<(B + 7) / 8, 256, 0, st>>>(
-      static_cast<const float*>(q), B, D, Dp, static_cast<int8_t*>(q8),
-      static_cast<float*>(qs2));
-  if (N > 0)
-    packed::prep_columns_int8<<<static_cast<unsigned>((N + 255) / 256), 256,
-                                0, st>>>(
-        static_cast<const float*>(base_scale),
-        static_cast<const float*>(base_sq),
-        static_cast<const float*>(invalid), N, metric == kL2, bs, bsq);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return packed::launch<true>(q8, qs2, base8, bs, bsq, nullptr, out_f, out_i,
-                              ws, B, Dp, N, tiles, group, slices, metric,
-                              stream);
+  return int8_scan<false>(q, base8, base_scale, base_sq, invalid, q8, qs2,
+                          cols, out_f, out_i, ws, B, D, Dp, N, tiles, group,
+                          slices, metric, stream);
 }
 
-// The argument list is lane_scan.cu's scnt_lane_topk_scan's (the group
-// size is not read here).
-extern "C" int scnt_flat_lane_int8(const void* q, const void* qs,
-                                   const void* base, const void* bs,
-                                   const void* bsq, const void* invalid,
-                                   void* out_f, void* out_i, int B, int D,
-                                   long long N, int tiles, int /*group*/,
-                                   int metric, int aligned, void* stream) {
-  if (B <= 0) return 0;
-  const dim3 grid(kLanes / scnt::TB, (B + scnt::TQ - 1) / scnt::TQ);
-  lane8::lane_int8_kernel<<<grid, scnt::THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(qs),
-      static_cast<const int8_t*>(base), static_cast<const float*>(bs),
-      static_cast<const float*>(bsq), static_cast<const float*>(invalid),
-      static_cast<float*>(out_f), static_cast<int*>(out_i), B, D,
-      static_cast<int64_t>(N), tiles, metric, aligned != 0);
-  return static_cast<int>(cudaGetLastError());
+// The unpacked int8 scan: out_f / out_i [B, 2048] scores and rows (+inf /
+// -1 where empty), one walk (the workspace, group and slice count are the
+// packed entry's and are not read).
+extern "C" int scnt_flat_lane_int8(const void* q, const void* base8,
+                                   const void* base_scale,
+                                   const void* base_sq, const void* invalid,
+                                   void* q8, void* qs, void* cols,
+                                   void* out_f, void* out_i, void* /*ws*/,
+                                   int B, int D, int Dp, long long N,
+                                   int tiles, int /*group*/, int /*slices*/,
+                                   int metric, void* stream) {
+  return int8_scan<true>(q, base8, base_scale, base_sq, invalid, q8, qs,
+                         cols, out_f, out_i, nullptr, B, D, Dp, N, tiles, 1,
+                         1, metric, stream);
 }

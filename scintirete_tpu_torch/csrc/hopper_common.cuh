@@ -1,8 +1,9 @@
-// Hopper building blocks shared by the port's tensor-core scans
-// (lane_scan.cu, flat_scan.cu): mbarriers, TMA tile and bulk loads, wgmma (bf16 and
-// s8) on operands in shared memory with the 128-byte swizzle, and the
-// tensor-map encoder, looked up through the CUDA runtime so that a library
-// links nothing beyond it. sm_90a only (wgmma).
+// Hopper building blocks shared by the port's scans (lane_scan.cu,
+// flat_scan.cu, pivot_scan.cu): mbarriers, TMA tile and bulk loads, wgmma
+// (bf16 and s8) on operands in shared memory with the 128-byte swizzle, the
+// unpacked lane fold, and the tensor-map encoder, looked up through the
+// CUDA runtime so that a library links nothing beyond it. sm_90a only
+// (wgmma).
 //
 // Operand layout: a tile is stored as rows of 128 bytes (64 bf16 or 128
 // int8 values of depth), the layout TMA writes with CU_TENSOR_MAP_SWIZZLE_
@@ -156,6 +157,36 @@ __device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// _fold_best_two on one (query, lane) pair, in the state the unpacked lane
+// scans keep: (d1, d2) the lane's best and second score, their tiles as
+// 16-bit ids in tp (t1 in the low half, t2 in the high half, kNoTile =
+// empty). Tiles are folded in order with strict <: an equal later score
+// never displaces an earlier one, the displaced best is offered to the
+// second slot, and a NaN or +inf score never enters.
+constexpr uint32_t kNoTile = 0xffffu;
+constexpr int kMaxLaneTiles = 65535;  // tiles one launch can name
+
+__device__ __forceinline__ void fold_best_two(float& d1, float& d2,
+                                              uint32_t& tp, float s,
+                                              uint32_t t) {
+  const bool promoted = s < d1;
+  const float mid_d = promoted ? d1 : s;
+  const uint32_t mid_t = promoted ? tp : t;  // low half
+  if (promoted) {
+    d1 = s;
+    tp = __byte_perm(tp, t, 0x3254);  // low half <- t
+  }
+  if (mid_d < d2) {
+    d2 = mid_d;
+    tp = __byte_perm(tp, mid_t, 0x5410);  // high half <- mid
+  }
+}
+
+// The base row of tile id t in `lane`, -1 for an empty slot.
+__device__ __forceinline__ int lane_row(uint32_t t, int lane) {
+  return t == kNoTile ? -1 : static_cast<int>(t) * 1024 + lane;
+}
+
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime, so that the
 // library links nothing beyond the runtime.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -183,8 +214,8 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// [rows, cols] row-major matrix of `elem_bytes`-byte values (bf16: 2, int8
-// as UINT8: 1, which TMA copies unchanged) in boxes of 128 bytes x
+// [rows, cols] row-major matrix of `elem_bytes`-byte values (f32: 4, bf16:
+// 2, int8 as UINT8: 1, which TMA copies unchanged) in boxes of 128 bytes x
 // box_rows rows, 128-byte swizzle, out-of-bounds elements read as zero.
 inline bool encode(EncodeTiled fn, CUtensorMap* map, CUtensorMapDataType type,
                    int elem_bytes, const void* ptr, long long rows, int cols,

@@ -83,8 +83,6 @@ constexpr int kThreads = 384;        // consumer warpgroups 0 and 1, producer wa
 constexpr uint32_t kBaseChunkBytes = kTileRows * kChunk * 2;    // 8 KB
 constexpr uint32_t kQueryChunkBytes = kQueryRows * kChunk * 2;  // 16 KB
 constexpr uint32_t kHalfQueryBytes = kQueryChunkBytes / 2;      // one warpgroup's rows
-constexpr uint32_t kNoTile = 0xffffu;
-constexpr int kMaxTiles = 65535;
 constexpr CUtensorMapDataType kType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
 // Dynamic shared memory, byte offsets from a 1024-aligned start (the
@@ -285,17 +283,7 @@ lane_scan_kernel(const __grid_constant__ CUtensorMap q_map,  // [B, D] bf16
       for (int j = 0; j < 32; ++j) {
         const float s =
             __fsub_rn(c[2 * (j >> 2) + (j & 1)], __fmul_rn(f, acc[j]));
-        const bool promoted = s < d1[j];
-        const float mid_d = promoted ? d1[j] : s;
-        const uint32_t mid_t = promoted ? tp[j] : tt;  // low half
-        if (promoted) {
-          d1[j] = s;
-          tp[j] = __byte_perm(tp[j], tt, 0x3254);  // low half <- t
-        }
-        if (mid_d < d2[j]) {
-          d2[j] = mid_d;
-          tp[j] = __byte_perm(tp[j], mid_t, 0x5410);  // high half <- mid
-        }
+        fold_best_two(d1[j], d2[j], tp[j], s, tt);
       }
     }
 
@@ -305,11 +293,10 @@ lane_scan_kernel(const __grid_constant__ CUtensorMap q_map,  // [B, D] bf16
       if (b >= B) continue;
       const int lane = lane0 + 8 * (j >> 2) + colx + (j & 1);
       const int64_t o = static_cast<int64_t>(b) * ostride + lane;
-      const uint32_t t1 = tp[j] & 0xffffu, t2 = tp[j] >> 16;
       d1o[o] = d1[j];
       d2o[o] = d2[j];
-      i1o[o] = t1 == kNoTile ? -1 : static_cast<int>(t1) * kLanes + lane;
-      i2o[o] = t2 == kNoTile ? -1 : static_cast<int>(t2) * kLanes + lane;
+      i1o[o] = lane_row(tp[j] & 0xffffu, lane);
+      i2o[o] = lane_row(tp[j] >> 16, lane);
     }
   }
 }
@@ -322,7 +309,7 @@ int launch(const void* q, const void* self_idx, const void* base,
            void* stream) {
   if (B <= 0) return 0;
   if (!aligned || D <= 0 || D % 8 != 0 || grid_tiles < 0 ||
-      grid_tiles > kMaxTiles)
+      grid_tiles > kMaxLaneTiles)
     return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -376,15 +363,11 @@ extern "C" int scnt_knn_lane_scan_masked(const void* q, const void* self_idx,
 }
 
 // d / i: [B, 2048], best in columns [0, 1024), second best in [1024, 2048).
-// The argument list is that of the flat_scan.cu entries, so one wrapper
-// launches all four flat scans; the scale pointers and the group size
-// belong to the int8 scans and are not read here.
-extern "C" int scnt_lane_topk_scan(const void* q, const void* /*qs*/,
-                                   const void* base, const void* /*bs*/,
+extern "C" int scnt_lane_topk_scan(const void* q, const void* base,
                                    const void* bsq, const void* invalid,
                                    void* d, void* i, int B, int D,
-                                   long long N, int grid_tiles, int /*group*/,
-                                   int metric, int aligned, void* stream) {
+                                   long long N, int grid_tiles, int metric,
+                                   int aligned, void* stream) {
   return launch<true>(q, nullptr, base, bsq, invalid, d,
                       i, static_cast<float*>(d) + kLanes,
                       static_cast<int*>(i) + kLanes, 2 * kLanes, B, D, N, 0,

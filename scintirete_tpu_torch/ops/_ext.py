@@ -32,7 +32,7 @@ _LL = ctypes.c_longlong
 # C entry points: name -> (library = csrc source stem, symbol, argtypes)
 SIGNATURES = {
     "pivot_scan": (
-        "pivot_scan", "scnt_pivot_entry_scan", [_P] * 6 + [_I] * 5 + [_P],
+        "pivot_scan", "scnt_pivot_entry_scan", [_P] * 7 + [_I] * 4 + [_P],
     ),
     "lane_scan": (
         "lane_scan", "scnt_knn_lane_scan",
@@ -42,27 +42,24 @@ SIGNATURES = {
         "lane_scan", "scnt_knn_lane_scan_masked",
         [_P] * 9 + [_I, _I, _LL, _I, _I, _I, _P],
     ),
-    # the two unpacked flat scans share one argument list
-    **{
-        entry: (
-            lib, f"scnt_{entry}",
-            [_P] * 8 + [_I, _I, _LL, _I, _I, _I, _I, _P],
-        )
-        for lib, entry in (
-            ("lane_scan", "lane_topk_scan"),
-            ("flat_scan", "flat_lane_int8"),
-        )
-    },
-    # the packed ones take a workspace and a slice count, and the int8
-    # one its raw inputs and scratch for preparing them
+    "lane_topk_scan": (
+        "lane_scan", "scnt_lane_topk_scan",
+        [_P] * 6 + [_I, _I, _LL, _I, _I, _I, _P],
+    ),
+    # the packed scans take a workspace and a slice count
     "flat_packed_bf16": (
         "flat_scan", "scnt_flat_packed_bf16",
         [_P] * 7 + [_I, _I, _LL, _I, _I, _I, _I, _P],
     ),
-    "flat_packed_int8": (
-        "flat_scan", "scnt_flat_packed_int8",
-        [_P] * 11 + [_I, _I, _I, _LL, _I, _I, _I, _I, _P],
-    ),
+    # the int8 scans take their raw inputs and scratch for preparing them;
+    # the unpacked one reads no workspace, group size or slice count
+    **{
+        entry: (
+            "flat_scan", f"scnt_{entry}",
+            [_P] * 11 + [_I, _I, _I, _LL, _I, _I, _I, _I, _P],
+        )
+        for entry in ("flat_packed_int8", "flat_lane_int8")
+    },
 }
 LIBRARIES = sorted({lib for lib, _, _ in SIGNATURES.values()})
 

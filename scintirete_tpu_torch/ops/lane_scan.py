@@ -43,13 +43,13 @@ MAX_TILES = 65535  # 16-bit tile ids in the kernel's fold state, 0xffff = empty
 def scan_width(dim: int, elem_bytes: int = 2) -> int:
     """Columns of a scan base for `dim`-wide vectors of `elem_bytes`-byte
     values: a whole number of 16-byte units per row (bf16: `dim` rounded
-    up to a multiple of 8, int8: of 16)."""
+    up to a multiple of 8, int8: of 16, f32: of 4)."""
     unit = 16 // elem_bytes
     return -(-dim // unit) * unit
 
 
 def tma_rows(t):
-    """[R, D] rows (bf16 or int8) as the scan kernels' TMA copies take
+    """[R, D] rows (bf16, int8 or f32) as the scan kernels' TMA copies take
     them (whole 16-byte units per row, 16-byte aligned start): `t` itself
     when it is so, else a copy with zero columns appended."""
     pad = scan_width(t.shape[1], t.element_size()) - t.shape[1]

@@ -33,13 +33,14 @@ Each wrapper launches its CUDA kernel (`csrc/flat_scan.cu`;
 tensors, and its plain version (`*_plain`, the Pallas body repeated tile by
 tile) on CPU tensors. The kernels take any B.
 
-The two packed kernels run on the tensor cores with operands fed by TMA,
+All four kernels run on the tensor cores with operands fed by TMA,
 which wants rows of whole 16-byte units (`lane_scan.scan_width`: D a
 multiple of 8 in bf16, of 16 in int8): callers that keep a scan copy make
 it that wide (`index/flat.py`), and the wrappers pad any other input with
-zero columns, which change no dot, no norm and no int8 scale. Their tile
-walk may be split into slices that run side by side and merge (see
-`_slices`): packed keys never tie, so the merge gives the same bits.
+zero columns, which change no dot, no norm and no int8 scale. The packed
+scans' tile walk may be split into slices that run side by side and merge
+(see `_slices`): packed keys never tie, so the merge gives the same bits.
+The unpacked scans break ties by tile order and walk in one piece.
 """
 
 from __future__ import annotations
@@ -350,50 +351,20 @@ def _check_inputs(q, base, base_dtype=None, **arrays) -> None:
             check_tensor(t, label, torch.float32, shape, q.device)
 
 
-def _launch_flat(entry: str, name: str, q, q_scale, base, base_scale,
-                 base_sq, invalid, metric: int):
-    """Launch one unpacked flat scan entry (its argument list is shared)
-    and return its two [B, 2 LANES] outputs (f32, i32). Optional inputs
-    the entry does not read are None."""
-    from scintirete_tpu_torch.ops._ext import kernel
-
-    B, D = q.shape
-    N = base.shape[0]
-    dev = q.device
-    _check_metric(metric)
-    _check_inputs(q, base, query_scale=q_scale, base_scale=base_scale,
-                  base_sq=base_sq, invalid=invalid)
-    out_f = torch.empty((B, 2 * LANES), dtype=torch.float32, device=dev)
-    out_i = torch.empty((B, 2 * LANES), dtype=torch.int32, device=dev)
-    aligned = (D * q.element_size()) % 16 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (q, base)
-    )
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    err = kernel(entry)(
-        q.data_ptr(), ptr(q_scale), base.data_ptr(), ptr(base_scale),
-        base_sq.data_ptr(), ptr(invalid), out_f.data_ptr(),
-        out_i.data_ptr(), B, D, N, N // LANES, 1, metric, int(aligned),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    return out_f, out_i
-
-
 def _launch_packed(entry: str, name: str, lead, B: int, N: int, tail,
-                   group: int, metric: int, dev):
-    """Launch a packed scan entry, `lead` (pointers) first and `tail`
-    (sizes) after the outputs, with its walk split into slices and their
-    workspace; returns (keys, rows)."""
+                   group: int, metric: int, dev, split: bool = True):
+    """Launch a flat scan entry of the packed argument list, `lead`
+    (pointers) first and `tail` (sizes) after the outputs, with its walk
+    split into slices and their workspace where `split`; returns the two
+    [B, 2 LANES] outputs (f32, i32)."""
     from scintirete_tpu_torch.ops._ext import kernel
 
     _check_metric(metric)
     tiles = N // LANES
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    slices = _slices(B, tiles // group, sms)
+    slices = 1
+    if split:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        slices = _slices(B, tiles // group, sms)
     ws = None
     if slices > 1:
         ws = torch.empty((slices, B, 2 * LANES), dtype=torch.float32,
@@ -480,6 +451,28 @@ def packed_int8_inputs(queries, base_scale, base_sq, invalid, metric: int):
     return q8.contiguous(), qs2, bs, bsq
 
 
+def _launch_int8(entry: str, name: str, queries, base8, base_scale,
+                 base_sq, invalid, group: int, metric: int, split: bool):
+    """Launch an int8 scan entry on the caller's arrays. The entry makes
+    the scan's inputs itself (the query quantization and the [N] column
+    terms; two launches in place of ~20 small torch ops) into scratch
+    allocated here."""
+    q = queries.float().contiguous()
+    _check_inputs(q, base8, torch.int8, base_scale=base_scale,
+                  base_sq=base_sq, invalid=invalid)
+    base8 = tma_rows(base8)
+    (B, D), (N, Dp) = q.shape, base8.shape
+    q8 = torch.empty((B, Dp), dtype=torch.int8, device=q.device)
+    qs = torch.empty(B, dtype=torch.float32, device=q.device)
+    cols = torch.empty((2, N), dtype=torch.float32, device=q.device)
+    return _launch_packed(
+        entry, name,
+        tuple(t.data_ptr() for t in (q, base8, base_scale, base_sq, invalid,
+                                     q8, qs, cols)),
+        B, N, (B, D, Dp), group, metric, q.device, split=split,
+    )
+
+
 def lane_topk_scan_packed_int8(queries, base8, base_scale, base_sq, invalid,
                                metric: int, tps: int = 1):
     """Packed int8 lane scan. queries [B, D] f32 (quantized per row here),
@@ -509,21 +502,9 @@ def lane_topk_scan_packed_int8(queries, base8, base_scale, base_sq, invalid,
             q8, qs2, base8, bs, bsq, metric, group
         )
         return keys, unpack_lane_keys(keys)[1]
-    # the kernel's entry makes packed_int8_inputs' arrays itself (two
-    # launches in place of its ~20 small ones) into this scratch
-    q = queries.float().contiguous()
-    _check_inputs(q, base8, torch.int8, base_scale=base_scale,
-                  base_sq=base_sq, invalid=invalid)
-    base8 = tma_rows(base8)
-    B, Dp = q.shape[0], base8.shape[1]
-    q8 = torch.empty((B, Dp), dtype=torch.int8, device=q.device)
-    qs2 = torch.empty(B, dtype=torch.float32, device=q.device)
-    cols = torch.empty((2, N), dtype=torch.float32, device=q.device)
-    keys, rows = _launch_packed(
-        "flat_packed_int8", name,
-        tuple(t.data_ptr() for t in (q, base8, base_scale, base_sq, invalid,
-                                     q8, qs2, cols)),
-        B, N, (B, q.shape[1], Dp), group, metric, q.device,
+    keys, rows = _launch_int8(
+        "flat_packed_int8", name, queries, base8, base_scale, base_sq,
+        invalid, group, metric, split=True,
     )
     lane_topk_scan_packed_int8.launches += 1
     return keys, rows
@@ -536,21 +517,27 @@ def lane_topk_scan_int8(queries, base8, base_scale, base_sq, invalid,
                         metric: int):
     """Unpacked int8 lane scan: (d [B, 2 LANES] f32 ranking form, rows
     [B, 2 LANES] i32, -1 / +inf = empty). Inputs as
-    `lane_topk_scan_packed_int8`; N % LANES == 0."""
+    `lane_topk_scan_packed_int8`; N % LANES == 0. Scales and norms are
+    used as they are (no clamp). On the card the walk is never split (the
+    fold breaks ties by tile order) and its tile ids are 16 bits wide, so
+    one call takes at most MAX_TILES tiles."""
     name = "lane_topk_scan_int8"
     N = base8.shape[0]
     _check_scan_shape(name, N)
+    _check_metric(metric)
     _check_rows(name, N, base_scale=base_scale, base_sq=base_sq,
                 invalid=invalid)
-    q8, q_scale = quantize_rows(queries.float())
-    q8 = q8.contiguous()
-    if _device_kind(q8, name) == "cpu":
+    if _device_kind(queries, name) == "cpu":
+        q8, q_scale = quantize_rows(queries.float())
         return lane_topk_scan_int8_plain(
-            q8, q_scale, base8, base_scale, base_sq, invalid, metric
+            q8.contiguous(), q_scale, base8, base_scale, base_sq, invalid,
+            metric,
         )
-    d, i = _launch_flat(
-        "flat_lane_int8", name, q8, q_scale, base8, base_scale, base_sq,
-        invalid, metric,
+    if N // LANES > MAX_TILES:
+        raise ValueError(f"{name}: more than {MAX_TILES} tiles of {LANES} rows")
+    d, i = _launch_int8(
+        "flat_lane_int8", name, queries, base8, base_scale, base_sq, invalid,
+        1, metric, split=False,
     )
     lane_topk_scan_int8.launches += 1
     return d, i
@@ -574,15 +561,21 @@ def lane_topk_scan(queries, base, base_sq, invalid, metric: int):
         return lane_topk_scan_plain(qb, base, base_sq, invalid, metric)
     if N // LANES > MAX_TILES:
         raise ValueError(f"{name}: more than {MAX_TILES} tiles of {LANES} rows")
-    if base.dtype != torch.bfloat16 or base.shape[1] != qb.shape[1]:
-        raise ValueError(
-            f"{name}: want a bf16 base of {qb.shape[1]} columns, got "
-            f"{base.dtype} {tuple(base.shape)}"
-        )
-    d, i = _launch_flat(
-        "lane_topk_scan", name, tma_rows(qb), None, tma_rows(base), None,
-        base_sq, invalid, metric,
+    _check_metric(metric)
+    _check_inputs(qb, base, base_sq=base_sq, invalid=invalid)
+    from scintirete_tpu_torch.ops._ext import kernel
+
+    qb, base = tma_rows(qb), tma_rows(base)
+    B, D = qb.shape
+    d = torch.empty((B, 2 * LANES), dtype=torch.float32, device=qb.device)
+    i = torch.empty((B, 2 * LANES), dtype=torch.int32, device=qb.device)
+    err = kernel("lane_topk_scan")(
+        qb.data_ptr(), base.data_ptr(), base_sq.data_ptr(),
+        invalid.data_ptr(), d.data_ptr(), i.data_ptr(), B, D, N, N // LANES,
+        metric, 1, torch.cuda.current_stream(qb.device).cuda_stream,
     )
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
     lane_topk_scan.launches += 1
     return d, i
 

@@ -10,13 +10,17 @@ to the lowest pivot index; when every pivot is deleted the result is
 `pivot_entry_scan` runs the CUDA kernel (`csrc/pivot_scan.cu`) on CUDA
 tensors and the plain version `pivot_entry_scan_plain` on CPU tensors. The
 kernel takes any R (the Pallas kernel needed R % 512 == 0) and masks the
-ragged edge itself.
+ragged edge itself; its C entry sets up, scans and writes (d, i), so the
+wrapper only allocates. Its TMA copies take rows of whole 16-byte units:
+a D that is not a multiple of 4 is padded with zero columns here (a copy
+of the pivots on every call; the main path's widths need none).
 """
 
 from __future__ import annotations
 
 import torch
 
+from scintirete_tpu_torch.ops.lane_scan import tma_rows
 from scintirete_tpu_torch.types import DistanceMetric
 
 _L2 = int(DistanceMetric.L2)
@@ -44,18 +48,6 @@ def pivot_entry_scan_plain(queries, pivot_vecs, pivot_sq, pivot_deleted,
     return best_d, best_i
 
 
-def _decode_keys(keys):
-    """(mono(d) << 32 | idx) int64 keys -> (d f32, idx i32); empty -> -1."""
-    hi = (keys >> 32) & 0xFFFFFFFF
-    lo = keys & 0xFFFFFFFF
-    bits = torch.where(hi >= 0x80000000, hi - 0x80000000, 0xFFFFFFFF - hi)
-    d = bits.to(torch.int32).view(torch.float32)
-    empty = (lo == 0xFFFFFFFF) | torch.isinf(d)
-    d = torch.where(empty, torch.inf, d)
-    idx = torch.where(empty, -1, lo).to(torch.int32)
-    return d, idx
-
-
 def pivot_entry_scan(queries, pivot_vecs, pivot_sq, pivot_deleted,
                      metric: int):
     """Returns (best_dist [B] f32 comparison form, best_pivot [B] i32).
@@ -80,21 +72,21 @@ def pivot_entry_scan(queries, pivot_vecs, pivot_sq, pivot_deleted,
     _check(pivot_deleted, "pivot_deleted", torch.float32, (R,), dev)
     if metric not in (_L2, _COSINE, _IP):
         raise ValueError(f"unsupported metric code: {metric}")
-    qsq = (queries * queries).sum(dim=1)
+    # TMA rows: whole 16-byte units (D % 4 == 0), 16-byte aligned starts
+    q, piv = tma_rows(queries), tma_rows(pivot_vecs)
     keys = torch.empty(B, dtype=torch.int64, device=dev)
-    keys.fill_(-1)  # all ones: larger than any real key
-    aligned = D % 8 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (queries, pivot_vecs)
-    )
+    best_d = torch.empty(B, dtype=torch.float32, device=dev)
+    best_i = torch.empty(B, dtype=torch.int32, device=dev)
     err = kernel("pivot_scan")(
-        queries.data_ptr(), qsq.data_ptr(), pivot_vecs.data_ptr(),
-        pivot_sq.data_ptr(), pivot_deleted.data_ptr(), keys.data_ptr(),
-        B, R, D, metric, int(aligned), torch.cuda.current_stream(dev).cuda_stream,
+        q.data_ptr(), piv.data_ptr(), pivot_sq.data_ptr(),
+        pivot_deleted.data_ptr(), keys.data_ptr(), best_d.data_ptr(),
+        best_i.data_ptr(), B, R, q.shape[1], metric,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"pivot_entry_scan launch failed: cudaError {err}")
     pivot_entry_scan.launches += 1
-    return _decode_keys(keys)
+    return best_d, best_i
 
 
 pivot_entry_scan.launches = 0

@@ -1,4 +1,4 @@
-"""Where a packed flat scan's time goes on one GPU: the product against the fold.
+"""Where a flat scan's time goes on one GPU: the product against the fold.
 
     python3 scripts/torch_flat_split.py
 
@@ -7,13 +7,15 @@ build/flat_split/: the kernel as it is; "product only", whose epilogue
 keeps just a running minimum of the raw dots (the ring, the TMA copies and
 the wgmma products, no score and no fold); and "fold only", which issues
 no product (the ring, the copies and the score and fold of unchanged
-accumulators). Times each C entry (scnt_flat_packed_bf16, and
-scnt_flat_packed_int8 with its input preparation; no wrapper) on a cosine
-scan of B = 1024 and 1 queries against a 2^20 x 128 base (B = 1 split into
-slices as the wrapper splits it), in turns (the three copies, then the
-reverse), medians of 20 CUDA-event timings. The last two copies compute
-wrong keys by design: only their times mean anything. Needs a CUDA
-card and nvcc; imports nothing of JAX.
+accumulators). The three scans of flat_scan.cu share that body, so each
+copy holds all three. Times each C entry (scnt_flat_packed_bf16, and
+scnt_flat_packed_int8 and scnt_flat_lane_int8 with their input
+preparation; no wrapper) on a cosine scan of B = 1024 and 1 queries
+against a 2^20 x 128 base (B = 1 split into slices as the wrapper splits
+the packed scans; the unpacked int8 scan walks in one piece), in turns
+(the three copies, then the reverse), medians of 20 CUDA-event timings.
+The last two copies compute wrong keys by design: only their times mean
+anything. Needs a CUDA card and nvcc; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -55,8 +57,8 @@ def variants(src: str) -> dict[str, str]:
 
 
 def build_all(texts: dict[str, str], out: Path) -> dict[str, dict]:
-    """One nvcc per copy, all started together; returns each copy's two
-    packed entry points."""
+    """One nvcc per copy, all started together; returns each copy's three
+    entry points."""
     from scintirete_tpu_torch.ops import _ext
 
     procs = {}
@@ -77,7 +79,8 @@ def build_all(texts: dict[str, str], out: Path) -> dict[str, dict]:
         if proc.wait() != 0:
             sys.exit(f"{name}: nvcc failed\n{proc.stderr.read().decode()}")
         libs[name] = {}
-        for entry in ("flat_packed_bf16", "flat_packed_int8"):
+        for entry in ("flat_packed_bf16", "flat_packed_int8",
+                      "flat_lane_int8"):
             _, symbol, argtypes = _ext.SIGNATURES[entry]
             fn = getattr(ctypes.CDLL(str(lib)), symbol)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
@@ -107,8 +110,8 @@ def main() -> None:
     keys = torch.empty((B, 2048), device=dev)
     rows = torch.empty((B, 2048), dtype=torch.int32, device=dev)
     ws = torch.empty((16, 1, 2048), device=dev)
-    # the int8 entry quantizes the queries and prepares the [N] terms into
-    # scratch itself (as the wrapper calls it)
+    # the int8 entries quantize the queries and prepare the [N] terms into
+    # scratch themselves (as the wrappers call them)
     scratch = (torch.empty((B, D), dtype=torch.int8, device=dev),
                torch.empty(B, device=dev), torch.empty((2, N), device=dev))
     inputs = {
@@ -116,12 +119,15 @@ def main() -> None:
                               b32.to(torch.bfloat16), bsq, invalid), (D,)),
         "flat_packed_int8": ((q32, base8, scale, bsq, invalid, *scratch),
                              (D, D)),
+        "flat_lane_int8": ((q32, base8, scale, bsq, invalid, *scratch),
+                           (D, D)),
     }
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
 
     def run(fn, entry, b):
         lead, widths = inputs[entry]
+        # the unpacked scan reads no slice count: it never splits
         slices = ps._slices(b, N // 1024, sms)
         ptrs = [None if t is None else t.data_ptr()
                 for t in (*lead, keys, rows, ws)]
@@ -149,7 +155,7 @@ def main() -> None:
     print(f"card: {card}")
     for name in list(libs) + list(reversed(libs)):
         times = ", ".join(
-            f"{entry[12:]} B={b} {median_ms(libs[name][entry], entry, b):.4f} ms"
+            f"{entry.removeprefix('flat_')} B={b} {median_ms(libs[name][entry], entry, b):.4f} ms"
             for entry in inputs for b in (B, 1)
         )
         print(f"{name}: {times}", flush=True)

@@ -6,17 +6,19 @@ JAX, so leave it out):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-They cover the shapes the main-path check (chip_smoke.py) does not: a
-ragged pivot count, depths that are not a multiple of 8 (the CUDA-core
-kernels' unvectorized loads; the lane kernel's zero padding), depths the
-lane kernel streams through its ring (D = 768), query counts that are not
-a multiple of the 64- or 128-row tiles (B = 1, 65), a single tile, a masked
+They cover the shapes the main-path check (chip_smoke.py) does not: the
+pivot scan at ragged pivot and query counts, padded and streamed depths,
+the pivot cap, exact ties across its blocks and with every pivot deleted;
+depths that are not a multiple of the TMA unit (zero padding), depths the
+scans stream through their ring (D = 768), query counts that are not a
+multiple of the 64- or 128-row tiles (B = 1, 65), a single tile, a masked
 scan over a ragged base and one with every row masked, exact ties that the
-lane fold must break in tile order, the four flat scans at odd shapes,
-with every row masked and with overflowed norms, the packed scans at
-ragged B, padded and deep D, split and unsplit walks over 2^20 rows and
-equal scores in every tile of a lane, and a small build, append, search
-and flat collection on the card.
+lane folds must break in tile order, the four flat scans at odd shapes,
+with every row masked and with overflowed norms, the packed and the
+unpacked int8 scans at ragged B, padded and deep D and over 2^20 rows
+(split and unsplit walks for the packed ones), equal scores in every tile
+of a lane, and a small build, append, search and flat collection on the
+card.
 """
 
 import numpy as np
@@ -56,6 +58,122 @@ def test_pivot_kernel_matches_plain(dev, metric, B, R, D):
     assert pivot_entry_scan.launches == before + 1
     torch.testing.assert_close(d_k, d_p, rtol=1e-5, atol=1e-4)
     assert torch.equal(i_k, i_p)
+
+
+def _pivot_inputs(dev, metric, B, R, D, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, D, generator=g, device=dev)
+    pv = torch.randn(R, D, generator=g, device=dev)
+    if metric == 2:
+        q = q / q.norm(dim=1, keepdim=True)
+        pv = pv / pv.norm(dim=1, keepdim=True)
+    pdel = (torch.rand(R, generator=g, device=dev) < 0.1).float()
+    return q, pv, (pv * pv).sum(1), pdel
+
+
+def _hold_pivot(q, pv, psq, pdel, metric):
+    """Kernel against plain: distances within atol 1e-4 + rtol 1e-5 (f32
+    sums in another order), ids equal except where the two distances tie
+    within that tolerance, and no deleted pivot."""
+    from scintirete_tpu_torch.ops.pivot_scan import (
+        pivot_entry_scan,
+        pivot_entry_scan_plain,
+    )
+
+    before = pivot_entry_scan.launches
+    d_k, i_k = pivot_entry_scan(q, pv, psq, pdel, metric)
+    d_p, i_p = pivot_entry_scan_plain(q, pv, psq, pdel, metric)
+    torch.cuda.synchronize()
+    assert pivot_entry_scan.launches == before + 1
+    assert d_k.dtype == torch.float32 and i_k.dtype == torch.int32
+    torch.testing.assert_close(d_k, d_p, rtol=1e-5, atol=1e-4)
+    same = i_k == i_p
+    tol = 1e-4 + 1e-5 * d_p.abs()
+    assert bool(((d_k - d_p).abs() <= tol)[~same].all())
+    assert not bool((pdel[i_k[i_k >= 0].long()] > 0.5).any())
+
+
+@pytest.mark.parametrize("metric", [1, 2, 3])
+@pytest.mark.parametrize("B", [1, 63, 65, 255, 256])
+@pytest.mark.parametrize("R", [65536, 65536 - 300])
+def test_pivot_kernel_ragged_batches(dev, metric, B, R):
+    """Query counts around the 64-row (B <= 64) and 128-row query tiles,
+    on the main path's pivot count and a ragged one (a partial last tile)."""
+    _hold_pivot(*_pivot_inputs(dev, metric, B, R, 128, B + R), metric)
+
+
+@pytest.mark.parametrize("metric", [1, 2, 3])
+@pytest.mark.parametrize("D", [33, 768])
+def test_pivot_kernel_padded_and_deep(dev, metric, D):
+    """D = 33 is padded to 36 columns for TMA; D = 768 streams the queries
+    through the ring beside the pivots."""
+    _hold_pivot(*_pivot_inputs(dev, metric, 70, 5000, D, D), metric)
+
+
+@pytest.mark.parametrize("B", [1, 256])
+def test_pivot_kernel_at_the_pivot_cap(dev, B):
+    """R = 262,144 (PIVOT_CAP): 2,048 pivot tiles over the card's ranges."""
+    _hold_pivot(*_pivot_inputs(dev, 2, B, 262144, 128, B), 2)
+
+
+@pytest.mark.parametrize("metric", [1, 2, 3])
+def test_pivot_kernel_ties_across_blocks(dev, metric):
+    """Copies of each query's best pivot in different blocks' pivot ranges
+    (and in one tile): identical rows give identical scores, and the lowest
+    index wins. For inner product, pivots orthogonal to a query score
+    -0.0 (-dot of +0); the kernel compares zeros of either sign as equal,
+    so the lowest orthogonal pivot wins as in the plain version."""
+    from scintirete_tpu_torch.ops.pivot_scan import (
+        pivot_entry_scan,
+        pivot_entry_scan_plain,
+    )
+
+    B, R, D = 256, 65536, 128
+    g = torch.Generator(device=dev).manual_seed(metric)
+    q = torch.randint(-3, 4, (B, D), generator=g, device=dev).float()
+    pv = torch.randint(-3, 4, (R, D), generator=g, device=dev).float()
+    # copies at p + b for query b: blocks' ranges hold about 1,000 pivots
+    where = torch.tensor([60000, 40000, 20001, 999, 130], device=dev)
+    for b in range(B):
+        pv[where + b] = q[b] * (1.0 if metric == 1 else 3.0)
+    if metric == 2:
+        q = q / q.norm(dim=1, keepdim=True)
+        pv = pv / pv.norm(dim=1, keepdim=True)
+    psq = (pv * pv).sum(1)
+    pdel = torch.zeros(R, device=dev)
+    pdel[130] = 1.0  # the lowest copy of query 0's best is deleted
+    d_k, i_k = pivot_entry_scan(q, pv, psq, pdel, metric)
+    torch.cuda.synchronize()
+    want = (130 + torch.arange(B, device=dev)).to(torch.int32)
+    want[0] = 999
+    assert torch.equal(i_k, want)
+
+    if metric == 3:  # zeros of either sign tie
+        qz = torch.zeros(4, D, device=dev)
+        qz[:, 0] = 1.0
+        pz = torch.randn(4096, D, generator=g, device=dev)
+        pz[:, 0] = -pz[:, 0].abs() - 0.5  # every dot < 0: d > 0
+        zero_at = torch.tensor([3000, 700, 2100], device=dev)
+        pz[zero_at, 0] = 0.0  # dot exactly 0: d = -0.0
+        pzd = torch.zeros(4096, device=dev)
+        d_k, i_k = pivot_entry_scan(qz, pz, (pz * pz).sum(1), pzd, 3)
+        d_p, i_p = pivot_entry_scan_plain(qz, pz, (pz * pz).sum(1), pzd, 3)
+        torch.cuda.synchronize()
+        assert bool((d_k == 0).all()) and bool((i_k == 700).all())
+        assert torch.equal(i_k, i_p)
+
+
+@pytest.mark.parametrize("B", [1, 65, 300])
+def test_pivot_kernel_all_deleted(dev, B):
+    """Every pivot deleted: (+inf, -1) for every query, written by the C
+    entry itself."""
+    from scintirete_tpu_torch.ops.pivot_scan import pivot_entry_scan
+
+    q, pv, psq, _ = _pivot_inputs(dev, 1, B, 3000, 64, B)
+    d, i = pivot_entry_scan(q, pv, psq, torch.ones(3000, device=dev), 1)
+    torch.cuda.synchronize()
+    assert bool(torch.isinf(d).all()) and bool((d > 0).all())
+    assert bool((i == -1).all())
 
 
 @pytest.mark.parametrize("metric", [1, 2, 3])
@@ -153,10 +271,11 @@ def _tied_base(dev, seed, D=40, tiles=4):
 @pytest.mark.parametrize("metric", [1, 2, 3])
 def test_lane_kernels_break_ties_in_tile_order(dev, metric):
     """Exact ties: the strict-< fold keeps the earlier tile's row. With
-    exact scores the three lane-kernel entries must equal their plain
-    versions exactly, ids included: the prefix and masked graph-build scans
-    (self rows excluded, their copies in other tiles not) and the flat
-    index's [B, 2048] output."""
+    exact scores the four unpacked lane-kernel entries must equal their
+    plain versions exactly, ids included: the prefix and masked graph-build
+    scans (self rows excluded, their copies in other tiles not) and the
+    flat index's [B, 2048] outputs, bf16 and int8 (duplicate rows quantize
+    to the same int8 row and scale, so they tie exactly too)."""
     from scintirete_tpu_torch.ops import packed_scan as ps
     from scintirete_tpu_torch.ops.lane_scan import (
         lane_scan,
@@ -184,6 +303,7 @@ def test_lane_kernels_break_ties_in_tile_order(dev, metric):
         torch.cuda.synchronize()
         for k, p in zip(k_out, p_out):
             assert torch.equal(k, p)
+    _hold_lane_int8(qb.float(), base32, bsq, invalid, metric)
 
 
 def test_bad_inputs_raise(dev):
@@ -406,6 +526,66 @@ def _hold_packed_scans(q, base32, bsq, invalid, metric, tps_all=(1, 2, 4),
     _assert_bf16_keys_close(keys, rows, want, qb, base, bsq, metric)
     assert (rows == ps.unpack_lane_keys(want)[1]).float().mean() >= 0.999
     assert not bool((invalid[rows[rows >= 0].long()] > 0.5).any())
+
+
+def _hold_lane_int8(q, base32, bsq, invalid, metric):
+    """The unpacked int8 scan against its plain version, bit for bit
+    (scores and rows): the s8 product is exact and no multiply is
+    contracted; one launch, no masked row out."""
+    from scintirete_tpu_torch.ops import packed_scan as ps
+
+    base8, scale = ps.quantize_rows(base32)
+    before = ps.lane_topk_scan_int8.launches
+    d, i = ps.lane_topk_scan_int8(q, base8, scale, bsq, invalid, metric)
+    q8, q_scale = ps.quantize_rows(q)
+    want_d, want_i = ps.lane_topk_scan_int8_plain(
+        q8, q_scale, base8, scale, bsq, invalid, metric
+    )
+    torch.cuda.synchronize()
+    assert ps.lane_topk_scan_int8.launches == before + 1
+    assert torch.equal(d.view(torch.int32), want_d.view(torch.int32))
+    assert torch.equal(i, want_i)
+    assert not bool((invalid[i[i >= 0].long()] > 0.5).any())
+
+
+@pytest.mark.parametrize("metric", [1, 2, 3])
+@pytest.mark.parametrize("B", [1, 63, 65, 129, 1025])
+def test_lane_int8_scan_ragged_batches(dev, metric, B):
+    """Query counts around the 64-row warpgroup and 128-row block edges;
+    every launch walks all tiles in one piece."""
+    q, base32, bsq, invalid = _flat_scan_inputs(dev, metric, B, 8192, 128, B)
+    _hold_lane_int8(q, base32, bsq, invalid, metric)
+
+
+@pytest.mark.parametrize("metric", [1, 2, 3])
+@pytest.mark.parametrize("D", [100, 768])
+def test_lane_int8_scan_padded_and_deep(dev, metric, D):
+    """D = 100 is padded to 112 int8 columns for TMA; D = 768 streams the
+    queries through the ring beside the base (six 128-byte chunks)."""
+    q, base32, bsq, invalid = _flat_scan_inputs(dev, metric, 70, 4096, D, D)
+    _hold_lane_int8(q, base32, bsq, invalid, metric)
+
+
+@pytest.mark.parametrize("B", [1, 4096])
+def test_lane_int8_scan_on_a_million_rows(dev, B):
+    """2^20 rows, cosine: B = 1 is 16 blocks, each a full walk of 1,024
+    tiles; B = 4096 is 512 blocks."""
+    q, base32, bsq, invalid = _flat_scan_inputs(dev, 2, B, 1 << 20, 128, 9)
+    _hold_lane_int8(q, base32, bsq, invalid, 2)
+
+
+def test_lane_int8_scan_tile_cap(dev):
+    """The fold state names tiles in 16 bits: more than MAX_TILES tiles
+    raise before anything is launched."""
+    from scintirete_tpu_torch.ops import packed_scan as ps
+
+    n = (ps.MAX_TILES + 1) * 1024
+    # only the shapes are read before the raise: views of one row will do
+    base8 = torch.zeros((1, 16), dtype=torch.int8, device=dev).expand(n, 16)
+    zeros = torch.zeros(1, device=dev).expand(n)
+    with pytest.raises(ValueError):
+        ps.lane_topk_scan_int8(torch.zeros(2, 16, device=dev), base8, zeros,
+                               zeros, zeros, 1)
 
 
 @pytest.mark.parametrize("metric", [1, 2, 3])

@@ -197,6 +197,69 @@ def test_lane_int8_scan_matches_pallas(rng, metric):
     assert i.dtype == torch.int32 and not np.any(invalid[i.numpy()[i.numpy() >= 0]] > 0.5)
 
 
+def _tied_int8_base(rng, D=32, tiles=3):
+    """Small-integer rows, each tile a copy of the first with a third of
+    its rows redrawn: rows r and r + LANES k of one lane quantize to the
+    same int8 row and scale, so their scores tie exactly on both sides."""
+    first = rng.integers(-3, 4, (LANES, D)).astype(np.float32)
+    scan = np.tile(first, (tiles, 1))
+    redraw = rng.random(tiles * LANES) < 0.3
+    redraw[:LANES] = False
+    scan[redraw] = rng.integers(-3, 4, (int(redraw.sum()), D))
+    return scan
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_lane_int8_scan_breaks_ties_as_pallas(rng, metric):
+    """Exact ties across tiles: the strict-< fold keeps the earlier tile's
+    row. The port's plain version and the JAX kernel (interpret mode) agree
+    on every id, and on every score."""
+    scan = _tied_int8_base(rng)
+    q = scan[rng.choice(LANES, 8, replace=False)] + rng.integers(
+        -1, 2, (8, scan.shape[1])).astype(np.float32)
+    scan_sq = np.sum(scan * scan, axis=1).astype(np.float32)
+    invalid = (rng.random(len(scan)) < 0.1).astype(np.float32)
+    b8, sc = _quant8(scan)
+    want_d, want_i = jax_scan.lane_topk_scan_int8(
+        jnp.asarray(q), jnp.asarray(b8), jnp.asarray(sc),
+        jnp.asarray(scan_sq), jnp.asarray(invalid), metric, interpret=True,
+    )
+    d, i = port_scan.lane_topk_scan_int8(
+        _t(q), _t(b8), _t(sc), _t(scan_sq), _t(invalid), metric
+    )
+    np.testing.assert_array_equal(i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(d.numpy(), np.asarray(want_d), **SCORE_TOL)
+    # the ties are there: some lane's best has an equal score in a later tile
+    rows = i.numpy()[:, :LANES]
+    later = rows[rows >= 0] + LANES
+    later = later[later < len(scan)]
+    assert np.any(np.all(scan[later] == scan[later - LANES], axis=1))
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_lane_int8_scan_padded_width_is_the_same(rng, metric):
+    """The card's wrapper pads queries and base to `scan_width(D, 1)`
+    columns (a multiple of 16) with zeros after quantizing: zero columns
+    change no dot, no scale and no norm, so the plain result is the same
+    bits with and without them."""
+    from scintirete_tpu_torch.ops.lane_scan import scan_width
+
+    _, q_scan, _, scan, scan_sq, invalid = _inputs(rng, metric, 2 * LANES,
+                                                   D=40)
+    b8, sc = _quant8(scan)
+    pad = scan_width(40, 1) - 40
+    assert pad > 0
+    d0, i0 = port_scan.lane_topk_scan_int8(
+        _t(q_scan), _t(b8), _t(sc), _t(scan_sq), _t(invalid), metric
+    )
+    d1, i1 = port_scan.lane_topk_scan_int8(
+        _t(np.pad(q_scan, ((0, 0), (0, pad)))), _t(np.pad(b8, ((0, 0), (0, pad)))),
+        _t(sc), _t(scan_sq), _t(invalid), metric,
+    )
+    assert torch.equal(d0.view(torch.int32), d1.view(torch.int32))
+    assert torch.equal(i0, i1)
+
+
 @pytest.mark.parametrize("metric", METRICS)
 def test_lane_bf16_scan_matches_pallas(rng, metric):
     _, q_scan, _, scan, scan_sq, invalid = _inputs(rng, metric, 3 * LANES)
