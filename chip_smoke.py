@@ -81,10 +81,40 @@ Phases, in order; any failure exits non-zero and prints no result line:
     through FlatIndex(scan_dtype="bfloat16") directly, same checks, and
     lane_topk_scan_packed must have been launched. The counts of all four
     flat scans are set to 0 before this phase and read after it;
- 8. prints the kernels' JSON line (seven entries), the card's line, and
-    last {"ok": true, "device": {...}}.
+ 8. durability (persistence/ and the engine's AOF bridge), each phase in a
+    temporary directory whose free space it prints before it writes, and
+    fails under twice what it is about to write; each prints one JSON line
+    with its seconds, file bytes, recover()'s report and the card:
+    A. after the append, on the 1M HNSW collection: a snapshot through a
+       PersistenceManager (everysec), an AOF tail of 2 x 4,096 new vectors
+       with metadata (logged as the server logs them, elements as lists)
+       and 1,000 deletes (half old, half new); recovery into a fresh
+       Engine on the card, timed apart (RDB load, restore, AOF replay,
+       first search with the mirror upload); fails unless the report says
+       3 commands and nothing degraded, every surviving tail vector reads
+       back bit for bit with its metadata, no deleted id is readable or
+       returned, recall@10 >= 0.95 and no lower than the live engine's,
+       and pivot_entry_scan and knn_lane_topc_masked ran in the recovery
+       and its searches; prints how many queries return other ids than
+       the live engine;
+    B. in the flat phase, the int8 collection after its delete: a
+       snapshot recovered into a fresh engine, whose search_batch_arrays
+       must equal the live one's bit for bit, ids and distances, and must
+       launch lane_topk_scan_packed_int8;
+    C. with no snapshot ever taken: a fresh engine logs 12 inserts of
+       4,096 vectors and 1,000 deletes, and recovers from the AOF alone
+       (the first INSERT builds through knn_lane_topc, the other 11 take
+       the masked append; both must run in the replay; same checks as A);
+       then a 100,000-row flat collection in the AOF-only regime is
+       rewritten (maybe_rewrite_aof, records of 100 vectors), recovered
+       from the rewritten log alone, and must search bit for bit as the
+       live one and hand out the same next id;
+ 9. prints the kernels' JSON line (seven entries; launches of the main
+    path and of the durability phases), the card's line, and last
+    {"ok": true, "device": {...}}.
 
-On one H100 the whole run takes 2.5 to 4 minutes of the 20 it may take.
+On one H100 the whole run takes about 4 minutes of the 20 it may take,
+the durability phases about a minute of it; it prints its total.
 
 This script imports nothing of JAX and nothing of the JAX package, and
 reads no environment variable. The data is made from --seed.
@@ -99,6 +129,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -113,6 +144,8 @@ N_BASE, N_QUERIES = 1_000_000, 4096
 N_CLUSTERS_PER_100K = 1000
 APPEND_BATCHES, APPEND_BATCH = 4, 4096
 CHUNKED_BATCHES, CHUNKED_BATCH = 50, 1000
+AOF_INSERTS = 12  # phase C: logged inserts of APPEND_BATCH vectors
+REWRITE_ROWS = 100_000  # phase C: the flat collection the rewrite compacts
 # the card's published peaks (H100 SXM data sheet, dense): operations/s
 # by input type, and device-memory bytes/s
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
@@ -912,7 +945,7 @@ def run_main_path(dev, n, n_queries, seed):
     if rec_del < RECALL_GATE:
         fail(f"recall@10 after delete {rec_del:.4f} < {RECALL_GATE}")
     flat_case = (queries, true_i, del_ids, true_after)
-    return launches, col, base, valid, centers, rng, flat_case, build_s
+    return launches, engine, col, base, valid, centers, rng, flat_case, build_s
 
 
 def replay_build_scans(dev, base, build_s, main_launches):
@@ -1067,7 +1100,7 @@ def run_append(dev, col, base, valid, centers, rng):
         fail(f"recall@10 after append {rec:.4f} < {RECALL_GATE}")
     if self_share < SELF_GATE:
         fail(f"appended self top-1 {self_share:.4f} < {SELF_GATE}")
-    return launches, per_batch
+    return launches, everything, live
 
 
 def run_chunked(dev, seed):
@@ -1168,7 +1201,7 @@ def timed_flat_searches(name, search_batch, search_arrays, queries):
     return ids_a, dists_a, qps_batch, qps_all
 
 
-def run_flat(dev, base, flat_case):
+def run_flat(dev, base, flat_case, card):
     """The flat index at full size, through the engine (int8 scan copy)
     and through FlatIndex(scan_dtype="bfloat16") directly."""
     import torch
@@ -1196,7 +1229,8 @@ def run_flat(dev, base, flat_case):
     for op in scans:
         op.launches = 0
 
-    col = Engine(device=dev).create_database("flat").create_collection(
+    engine = Engine(device=dev)
+    col = engine.create_database("flat").create_collection(
         CollectionConfig(name="c", metric=DistanceMetric.COSINE,
                          index_type="flat")
     )
@@ -1243,7 +1277,11 @@ def run_flat(dev, base, flat_case):
         fail("lane_topk_scan_packed_int8 was not launched by the flat path")
     if lane_topk_scan_packed.launches != 0:
         fail("the int8 flat path must not take the bf16 scan")
-    del col
+    # phase B: its counts are read apart and added
+    launches["lane_topk_scan_packed_int8"] += persist_flat(
+        dev, card, engine, col, queries, (ids_d, dists_d), sp
+    )
+    del col, engine
 
     idx = FlatIndex(DIM, metric=DistanceMetric.COSINE, device=dev,
                     scan_dtype="bfloat16")
@@ -1277,10 +1315,446 @@ def run_flat(dev, base, flat_case):
     return launches
 
 
+def add_launches(launches, more):
+    for name, cnt in more.items():
+        launches[name] += cnt
+
+
+def ensure_space(path, nbytes, what):
+    """Print the free bytes where a phase is about to write nbytes, and
+    fail under twice that."""
+    free = shutil.disk_usage(path).free
+    log(f"{what}: {free} bytes free in the temporary directory, about "
+        f"{nbytes} to write")
+    if free < 2 * nbytes:
+        fail(f"{what}: {free} bytes free, under twice the {nbytes} to write")
+
+
+def snapshot_bound(col, dim) -> int:
+    """A bound on the bytes of a snapshot of one collection, from its public
+    counts: twice its f32 vectors (at D = 128 a row's neighbour tables,
+    level, tombstone, id and metadata take less than its vector)."""
+    return 2 * 4 * dim * col.count()
+
+
+def timed_recover(pm):
+    """pm.recover() with its parts timed apart on the host clock, each
+    ending in a synchronize: the RDB load (read + decode), the restore
+    into the engine and the AOF replay (read + decode + apply)."""
+    import torch
+
+    spans = {}
+
+    def wrap(obj, attr, key):
+        fn = getattr(obj, attr)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spans[key] = time.perf_counter() - t0
+            return out
+
+        setattr(obj, attr, timed)
+
+    wrap(pm.rdb, "load", "rdb_load_s")
+    wrap(pm.engine, "restore_state", "restore_s")
+    wrap(pm.aof, "replay", "aof_replay_s")
+    t0 = time.perf_counter()
+    report = pm.recover()
+    torch.cuda.synchronize()
+    spans["recover_s"] = time.perf_counter() - t0
+    for key in ("rdb_load_s", "restore_s", "aof_replay_s"):
+        spans.setdefault(key, 0.0)
+    return report, spans
+
+
+def log_inserts(pm, col, db, name, rows, tag):
+    """Insert rows as the server does (elements as lists, a small
+    metadata dict each), then log them; returns (ids, log seconds)."""
+    pairs = [(v.tolist(), {"tag": tag, "row": i}) for i, v in enumerate(rows)]
+    ids = col.insert(pairs)
+    t0 = time.perf_counter()
+    pm.log_insert_vectors(db, name, [
+        {"id": vid, "elements": e, "metadata": m}
+        for vid, (e, m) in zip(ids, pairs)
+    ])
+    return ids, time.perf_counter() - t0
+
+
+def search_all(col, queries, sp):
+    out = []
+    for s in range(0, len(queries), BATCH):
+        out.extend(col.search_batch(queries[s : s + BATCH], sp))
+    return out
+
+
+def check_recovered(name, col, rows, ids, gone, tags):
+    """Every surviving logged vector reads back bit for bit with its
+    metadata; no deleted id reads back."""
+    for i, vid in enumerate(ids):
+        if vid in gone:
+            continue
+        v = col.get(vid)
+        got = np.asarray(v.elements, np.float32)
+        if not np.array_equal(got.view(np.uint32), rows[i].view(np.uint32)):
+            fail(f"{name}: vector {vid} did not read back bit for bit")
+        if v.metadata != tags[i]:
+            fail(f"{name}: vector {vid} came back with metadata {v.metadata}")
+    if col.get_multiple(sorted(gone)):
+        fail(f"{name}: a deleted id reads back after recovery")
+
+
+def compare_searches(name, live_res, rec_res, truth, gone):
+    """Recall of both against the truth; fails below the gate, below the
+    live engine's or on a deleted id; returns (recalls, queries whose ids
+    differ, the first few of them)."""
+    if any(r.id in gone for res in rec_res for r in res):
+        fail(f"{name}: a deleted id came back from search")
+    check_results(rec_res, K)
+    rec_live = recall_of(live_res, truth)
+    rec_back = recall_of(rec_res, truth)
+    differ = [q for q, (a, b) in enumerate(zip(live_res, rec_res))
+              if [r.id for r in a] != [r.id for r in b]]
+    if rec_back < RECALL_GATE:
+        fail(f"{name}: recall@10 {rec_back:.4f} < {RECALL_GATE}")
+    if rec_back < rec_live:
+        fail(f"{name}: recall@10 {rec_back:.4f} after recovery, "
+             f"{rec_live:.4f} before")
+    return rec_live, rec_back, len(differ), differ[:8]
+
+
+def persist_hnsw(dev, card, engine, col, everything, live, centers, rng):
+    """Phase A: snapshot of the 1M HNSW collection, an AOF tail, recovery
+    into a fresh engine on the card."""
+    import torch
+
+    from scintirete_tpu_torch import SearchParams
+    from scintirete_tpu_torch.engine import Engine
+    from scintirete_tpu_torch.ops.lane_scan import lane_scan, lane_scan_masked
+    from scintirete_tpu_torch.ops.pivot_scan import pivot_entry_scan
+    from scintirete_tpu_torch.persistence import PersistenceManager
+
+    t_phase = time.perf_counter()
+    sp = SearchParams(top_k=K, ef_search=12)
+    tail = points_near(rng, centers, 2 * APPEND_BATCH)
+    out = {"phase": "A: HNSW 1M, RDB + AOF tail", "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        pm = PersistenceManager(engine, tmp)  # everysec
+        ensure_space(tmp, snapshot_bound(col, tail.shape[1])
+                     + tail.size * 9 * 2, "A")
+        t0 = time.perf_counter()
+        pm.save_snapshot()
+        out["save_s"] = time.perf_counter() - t0
+        out["rdb_bytes"] = pm.rdb.size_bytes()
+        tail_ids, tags, log_s = [], [], []
+        for b in range(2):
+            rows = tail[b * APPEND_BATCH : (b + 1) * APPEND_BATCH]
+            ids, dt = log_inserts(pm, col, "smoke", "c", rows, f"tail{b}")
+            tail_ids += ids
+            tags += [{"tag": f"tail{b}", "row": i} for i in range(len(rows))]
+            log_s.append(dt)
+        out["log_insert_s"] = log_s
+        old = np.flatnonzero(live) + 1
+        dels = sorted(
+            [int(i) for i in rng.choice(old, 500, replace=False)]
+            + [int(i) for i in rng.choice(tail_ids, 500, replace=False)]
+        )
+        if col.delete(dels) != len(dels):
+            fail("A: delete must tombstone every id once")
+        pm.log_delete_vectors("smoke", "c", dels)
+        gone = set(dels)
+        corpus = np.concatenate([everything, tail])
+        alive = np.concatenate([live, np.ones(len(tail), bool)])
+        alive[np.asarray(dels) - 1] = False
+        queries = np.concatenate([
+            perturbed(rng, everything[live], N_QUERIES // 2),
+            perturbed(rng, tail, N_QUERIES // 2),
+        ])
+        truth = ground_truth(dev, queries, corpus, alive, 2)
+        live_res = search_all(col, queries, sp)
+        pm.stop()
+        out["aof_bytes"] = os.path.getsize(pm.aof.path)
+
+        for op in (pivot_entry_scan, lane_scan, lane_scan_masked):
+            op.launches = 0
+        back = Engine(device=dev)
+        pm2 = PersistenceManager(back, tmp)
+        report, spans = timed_recover(pm2)
+        out.update(spans)
+        replay_masked = lane_scan_masked.launches
+        col2 = back.get_database("smoke").get_collection("c")
+        t0 = time.perf_counter()
+        rec_res = col2.search_batch(queries[:BATCH], sp)
+        torch.cuda.synchronize()
+        out["first_search_s"] = time.perf_counter() - t0
+        rec_res += search_all(col2, queries[BATCH:], sp)
+        pm2.stop()
+    out.update({k: report[k] for k in ("rdb_loaded", "aof_commands",
+                                       "degraded")})
+    if not report["rdb_loaded"] or report["aof_commands"] != 3 \
+            or report["degraded"]:
+        fail(f"A: recover() reported {report}")
+    check_recovered("A", col2, tail, tail_ids, gone, tags)
+    (out["recall_live"], out["recall_recovered"], out["queries_differing"],
+     out["first_differing"]) = compare_searches(
+        "A", live_res, rec_res, truth, gone)
+    launches = {"pivot_entry_scan": pivot_entry_scan.launches,
+                "knn_lane_topc_masked": lane_scan_masked.launches,
+                "knn_lane_topc": lane_scan.launches}
+    out["launches"] = launches
+    out["masked_launches_in_replay"] = replay_masked
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps(out), flush=True)
+    if replay_masked <= 0 or launches["pivot_entry_scan"] <= 0:
+        fail("A: the replay must run knn_lane_topc_masked and the search "
+             "pivot_entry_scan")
+    del back, col2
+    torch.cuda.empty_cache()
+    return launches
+
+
+def persist_flat(dev, card, engine, col, queries, want, sp):
+    """Phase B: snapshot of the 1M flat collection (int8 copy), recovered
+    into a fresh engine; its arrays search equals the live one's bit for
+    bit. Returns lane_topk_scan_packed_int8's launches in the phase."""
+    import torch
+
+    from scintirete_tpu_torch.engine import Engine
+    from scintirete_tpu_torch.ops.packed_scan import lane_topk_scan_packed_int8
+    from scintirete_tpu_torch.persistence import PersistenceManager
+
+    t_phase = time.perf_counter()
+    out = {"phase": "B: flat 1M int8, RDB", "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        pm = PersistenceManager(engine, tmp)
+        ensure_space(tmp, snapshot_bound(col, queries.shape[1]), "B")
+        t0 = time.perf_counter()
+        pm.save_snapshot()
+        out["save_s"] = time.perf_counter() - t0
+        out["rdb_bytes"] = pm.rdb.size_bytes()
+        pm.stop()
+        lane_topk_scan_packed_int8.launches = 0
+        back = Engine(device=dev)
+        pm2 = PersistenceManager(back, tmp)
+        report, spans = timed_recover(pm2)
+        pm2.stop()
+    out.update(spans)
+    col2 = back.get_database("flat").get_collection("c")
+    t0 = time.perf_counter()
+    ids, dists = col2.search_batch_arrays(queries, sp)
+    torch.cuda.synchronize()
+    out["first_search_s"] = time.perf_counter() - t0
+    out.update({k: report[k] for k in ("rdb_loaded", "aof_commands",
+                                       "degraded")})
+    out["launches"] = lane_topk_scan_packed_int8.launches
+    out["arrays_equal"] = bool(np.array_equal(ids, want[0])
+                               and np.array_equal(dists.view(np.uint32),
+                                                  want[1].view(np.uint32)))
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps(out), flush=True)
+    if not report["rdb_loaded"] or report["degraded"]:
+        fail(f"B: recover() reported {report}")
+    if not out["arrays_equal"]:
+        fail("B: the recovered flat collection searches to other ids or "
+             "distances")
+    if out["launches"] <= 0:
+        fail("B: lane_topk_scan_packed_int8 was not launched after recovery")
+    del back, col2
+    torch.cuda.empty_cache()
+    return out["launches"]
+
+
+def persist_aof_only(dev, card, seed):
+    """Phase C: recovery from the AOF alone, with no snapshot ever taken:
+    an HNSW collection of 12 logged inserts of 4,096 and 1,000 deletes,
+    then a 100,000-row flat collection compacted by an AOF rewrite."""
+    import dataclasses
+
+    import torch
+
+    from scintirete_tpu_torch import (
+        CollectionConfig,
+        DistanceMetric,
+        SearchParams,
+    )
+    from scintirete_tpu_torch.engine import Engine
+    from scintirete_tpu_torch.ops.lane_scan import lane_scan, lane_scan_masked
+    from scintirete_tpu_torch.ops.pivot_scan import pivot_entry_scan
+    from scintirete_tpu_torch.persistence import PersistenceManager
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 5)
+    n = AOF_INSERTS * APPEND_BATCH
+    base, queries, _ = make_dataset(rng, n, N_QUERIES)
+    sp = SearchParams(top_k=K, ef_search=12)
+    params = hnsw_params()
+    out = {"phase": f"C: HNSW AOF only, {AOF_INSERTS} x {APPEND_BATCH}",
+           "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        engine = Engine(device=dev)
+        pm = PersistenceManager(engine, tmp)
+        ensure_space(tmp, base.size * 9 + n * 64, "C (HNSW)")
+        db = engine.create_database("aof")
+        pm.log_create_database("aof")
+        col = db.create_collection(CollectionConfig(
+            name="c", metric=DistanceMetric.COSINE, hnsw=params,
+        ))
+        pm.log_create_collection("aof", "c", {
+            "metric": int(DistanceMetric.COSINE),
+            "hnsw": dataclasses.asdict(params),
+            "device_dtype": "float32", "index_type": "hnsw",
+        })
+        ids, tags, log_s = [], [], []
+        for b in range(AOF_INSERTS):
+            rows = base[b * APPEND_BATCH : (b + 1) * APPEND_BATCH]
+            got, dt = log_inserts(pm, col, "aof", "c", rows, f"b{b}")
+            ids += got
+            tags += [{"tag": f"b{b}", "row": i} for i in range(len(rows))]
+            log_s.append(dt)
+        out["log_insert_s"] = log_s
+        dels = sorted(int(i) for i in rng.choice(ids, 1000, replace=False))
+        col.delete(dels)
+        pm.log_delete_vectors("aof", "c", dels)
+        gone = set(dels)
+        alive = np.ones(n, bool)
+        alive[np.asarray(dels) - 1] = False
+        truth = ground_truth(dev, queries, base, alive, 2)
+        live_res = search_all(col, queries, sp)
+        pm.stop()
+        out["aof_bytes"] = os.path.getsize(pm.aof.path)
+
+        for op in (pivot_entry_scan, lane_scan, lane_scan_masked):
+            op.launches = 0
+        back = Engine(device=dev)
+        pm2 = PersistenceManager(back, tmp)
+        report, spans = timed_recover(pm2)
+        pm2.stop()
+    out.update(spans)
+    replayed = {"knn_lane_topc": lane_scan.launches,
+                "knn_lane_topc_masked": lane_scan_masked.launches}
+    col2 = back.get_database("aof").get_collection("c")
+    t0 = time.perf_counter()
+    rec_res = col2.search_batch(queries[:BATCH], sp)
+    torch.cuda.synchronize()
+    out["first_search_s"] = time.perf_counter() - t0
+    rec_res += search_all(col2, queries[BATCH:], sp)
+    out.update({k: report[k] for k in ("rdb_loaded", "aof_commands",
+                                       "degraded")})
+    if report["rdb_loaded"] or report["degraded"] \
+            or report["aof_commands"] != AOF_INSERTS + 3:
+        fail(f"C: recover() reported {report}")
+    check_recovered("C", col2, base, ids, gone, tags)
+    (out["recall_live"], out["recall_recovered"], out["queries_differing"],
+     out["first_differing"]) = compare_searches(
+        "C", live_res, rec_res, truth, gone)
+    launches = {"pivot_entry_scan": pivot_entry_scan.launches, **replayed}
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps(out), flush=True)
+    if min(launches.values()) <= 0:
+        fail("C: the replay must build through knn_lane_topc and append "
+             "through knn_lane_topc_masked, and the search run "
+             "pivot_entry_scan")
+    del engine, col, back, col2
+    torch.cuda.empty_cache()
+    persist_rewrite(dev, card, rng)
+    return launches
+
+
+def persist_rewrite(dev, card, rng):
+    """Phase C, flat part: a 100,000-row flat collection in the AOF-only
+    regime, compacted by maybe_rewrite_aof() into records of 100 vectors,
+    recovered from the rewritten log alone."""
+    import dataclasses
+
+    import torch
+
+    from scintirete_tpu_torch import (
+        CollectionConfig,
+        DistanceMetric,
+        HNSWParams,
+        SearchParams,
+    )
+    from scintirete_tpu_torch.engine import Engine
+    from scintirete_tpu_torch.persistence import PersistenceManager
+
+    t_phase = time.perf_counter()
+    n, step = REWRITE_ROWS, 10_000
+    base, queries, _ = make_dataset(rng, n, BATCH)
+    sp = SearchParams(top_k=K)
+    out = {"phase": f"C: flat {n}, AOF rewrite", "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        engine = Engine(device=dev)
+        pm = PersistenceManager(engine, tmp, aof_rewrite_size_bytes=1 << 16)
+        ensure_space(tmp, 2 * (base.size * 9 + n * 64), "C (flat)")
+        col = engine.create_database("aof").create_collection(
+            CollectionConfig(name="f", metric=DistanceMetric.COSINE,
+                             index_type="flat")
+        )
+        pm.log_create_database("aof")
+        pm.log_create_collection("aof", "f", {
+            "metric": int(DistanceMetric.COSINE),
+            "hnsw": dataclasses.asdict(HNSWParams()),
+            "device_dtype": "float32", "index_type": "flat",
+        })
+        ids = []
+        for s in range(0, n, step):
+            ids += log_inserts(pm, col, "aof", "f", base[s : s + step],
+                               "f")[0]
+        dels = sorted({n} | {int(i) for i in rng.choice(ids, 999,
+                                                         replace=False)})
+        col.delete(dels)
+        pm.log_delete_vectors("aof", "f", dels)
+        pm.aof.flush()
+        out["aof_bytes_before"] = pm.aof.size_bytes()
+        want = col.search_batch_arrays(queries, sp)
+        t0 = time.perf_counter()
+        if not pm.maybe_rewrite_aof():
+            fail("C: the AOF rewrite did not run")
+        out["rewrite_s"] = time.perf_counter() - t0
+        out["aof_bytes"] = pm.aof.size_bytes()
+        pm.stop()
+        back = Engine(device=dev)
+        pm2 = PersistenceManager(back, tmp)
+        report, spans = timed_recover(pm2)
+        pm2.stop()
+    out.update(spans)
+    out["records"] = report["aof_commands"]
+    col2 = back.get_database("aof").get_collection("f")
+    t0 = time.perf_counter()
+    got = col2.search_batch_arrays(queries, sp)
+    torch.cuda.synchronize()
+    out["first_search_s"] = time.perf_counter() - t0
+    out.update({k: report[k] for k in ("rdb_loaded", "aof_commands",
+                                       "degraded")})
+    extra = queries[:1]
+    out["next_id_live"] = col.insert([(extra[0], None)])[0]
+    out["next_id_recovered"] = col2.insert([(extra[0], None)])[0]
+    out["arrays_equal"] = bool(np.array_equal(got[0], want[0])
+                               and np.array_equal(got[1].view(np.uint32),
+                                                  want[1].view(np.uint32)))
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps(out), flush=True)
+    want_records = 2 + -(-(n - len(dels)) // 100)
+    if report["rdb_loaded"] or report["degraded"] \
+            or report["aof_commands"] != want_records:
+        fail(f"C: recover() of the rewritten log reported {report}, want "
+             f"{want_records} commands")
+    if not out["arrays_equal"]:
+        fail("C: the flat collection recovered from the rewritten log "
+             "searches to other ids or distances")
+    if out["next_id_live"] != out["next_id_recovered"]:
+        fail("C: the recovered collection hands out another next id")
+    del engine, col, back, col2
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="data seed")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -1341,17 +1815,23 @@ def main() -> None:
     checks["lane_topk_scan"] = check_lane_flat(dev, flat_inputs)
     del flat_inputs
     torch.cuda.empty_cache()
-    launches, col, base, valid, centers, rng, flat_case, build_s = (
+    launches, engine, col, base, valid, centers, rng, flat_case, build_s = (
         run_main_path(dev, N_BASE, N_QUERIES, args.seed)
     )
     replay_build_scans(dev, base, build_s, launches["knn_lane_topc"])
-    launches["knn_lane_topc_masked"], _ = run_append(
+    launches["knn_lane_topc_masked"], everything, live = run_append(
         dev, col, base, valid, centers, rng
     )
-    del col
+    add_launches(launches, persist_hnsw(
+        dev, card, engine, col, everything, live, centers, rng
+    ))
+    del col, engine
+    torch.cuda.empty_cache()
     run_chunked(dev, args.seed)
-    launches.update(run_flat(dev, base, flat_case))
+    launches.update(run_flat(dev, base, flat_case, card))
+    add_launches(launches, persist_aof_only(dev, card, args.seed))
 
+    log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     meta = {
         "pivot_entry_scan": ("pivot_scan.cu", "pallas_pivot.py:77"),
         "knn_lane_topc": ("lane_scan.cu", "pallas_scan.py:642"),

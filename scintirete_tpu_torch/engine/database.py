@@ -1,13 +1,13 @@
 """Database registry and the top-level Engine. Port of
 `scintirete_tpu/engine/database.py`; the engine passes its torch `device`
-down to every collection. AOF replay (`apply_command`) and the AOF-rewrite
-source (`get_optimized_commands`) go with the persistence layer and are not
-ported yet.
+down to every collection.
 
 Capability parity with the reference's engine
 (reference: internal/core/database/database.go:18-908): named databases
 holding named collections, create/drop/list/get, aggregate stats, and the
-snapshot half of the persistence bridge (export/restore).
+persistence bridge — snapshot export/restore, AOF command replay
+(`apply_command`, 6 command types) and AOF-rewrite source
+(`get_optimized_commands`, inserts re-batched in groups of 100).
 """
 
 from __future__ import annotations
@@ -26,6 +26,40 @@ from scintirete_tpu_torch.errors import (
     db_not_found,
 )
 from scintirete_tpu_torch.types import CollectionConfig, DatabaseInfo
+
+# AOF command types (reference: schemas/flatbuffers/aof.fbs:37-45)
+CMD_CREATE_DATABASE = "CREATE_DATABASE"
+CMD_DROP_DATABASE = "DROP_DATABASE"
+CMD_CREATE_COLLECTION = "CREATE_COLLECTION"
+CMD_DROP_COLLECTION = "DROP_COLLECTION"
+CMD_INSERT_VECTORS = "INSERT_VECTORS"
+CMD_DELETE_VECTORS = "DELETE_VECTORS"
+
+ALL_COMMANDS = (
+    CMD_CREATE_DATABASE,
+    CMD_DROP_DATABASE,
+    CMD_CREATE_COLLECTION,
+    CMD_DROP_COLLECTION,
+    CMD_INSERT_VECTORS,
+    CMD_DELETE_VECTORS,
+)
+
+
+def make_command(
+    command_type: str,
+    database: str,
+    collection: str = "",
+    args: Optional[dict[str, Any]] = None,
+    timestamp: Optional[float] = None,
+) -> dict[str, Any]:
+    """A logical AOF command record (serialization lives in persistence/aof)."""
+    return {
+        "timestamp": timestamp if timestamp is not None else time.time(),
+        "command_type": command_type,
+        "database": database,
+        "collection": collection,
+        "args": args or {},
+    }
 
 
 class Database:
@@ -210,15 +244,141 @@ class Engine:
                 databases[name] = db
             self._databases = databases
 
-    # ----- persistence bridge: AOF (not ported yet) -----
+    # ----- persistence bridge: AOF replay -----
 
     def apply_command(self, cmd: dict[str, Any]) -> None:
-        raise NotImplementedError(
-            "AOF replay is not ported yet: ROADMAP.md Queue 1, persistence item"
-        )
+        """Apply one logical AOF command
+        (reference: database.go:496-613 ApplyCommand)."""
+        ctype = cmd["command_type"]
+        dbname = cmd.get("database", "")
+        colname = cmd.get("collection", "")
+        args = cmd.get("args", {})
+
+        if ctype == CMD_CREATE_DATABASE:
+            if not self.has_database(dbname):
+                self.create_database(dbname)
+        elif ctype == CMD_DROP_DATABASE:
+            if self.has_database(dbname):
+                self.drop_database(dbname)
+        elif ctype == CMD_CREATE_COLLECTION:
+            db = self.get_database(dbname)
+            if colname not in db.list_collections():
+                from scintirete_tpu_torch.types import DistanceMetric, HNSWParams
+
+                cfg = args.get("config", {})
+                config = CollectionConfig(
+                    name=colname,
+                    metric=DistanceMetric(cfg.get("metric", 2)),
+                    hnsw=HNSWParams(**cfg.get("hnsw", {})),
+                    device_dtype=cfg.get("device_dtype", "float32"),
+                    index_type=cfg.get("index_type", "hnsw"),
+                )
+                col = db.create_collection(config)
+                # rewrite streams only re-INSERT live ids; without the
+                # high-water mark a restart would re-issue the ids of
+                # deleted vectors (the RDB path persists next_id — the
+                # rewrite stream needs the same)
+                if "next_id" in args:
+                    col._next_id = max(col._next_id, int(args["next_id"]))
+        elif ctype == CMD_DROP_COLLECTION:
+            db = self.get_database(dbname)
+            if colname in db.list_collections():
+                db.drop_collection(colname)
+        elif ctype == CMD_INSERT_VECTORS:
+            col = self.get_database(dbname).get_collection(colname)
+            # at-least-once replay: an insert can be both in the snapshot and
+            # in the AOF tail (mutation before snapshot capture, append after
+            # truncation) — skip ids that already exist instead of failing
+            vectors = [
+                (int(v["id"]), v["elements"], v.get("metadata"))
+                for v in args.get("vectors", [])
+                if not col.has_id(int(v["id"]))
+            ]
+            col.insert_with_ids(vectors)
+        elif ctype == CMD_DELETE_VECTORS:
+            col = self.get_database(dbname).get_collection(colname)
+            col.delete([int(i) for i in args.get("ids", [])])
+        else:
+            raise ScintireteError(
+                ErrorCode.CORRUPTED_DATA, f"unknown AOF command type: {ctype!r}"
+            )
+
+    # ----- persistence bridge: AOF rewrite source -----
 
     def get_optimized_commands(self, batch_size: int = 100) -> list[dict[str, Any]]:
-        raise NotImplementedError(
-            "the AOF rewrite source is not ported yet: ROADMAP.md Queue 1, "
-            "persistence item"
-        )
+        """Minimal command stream recreating current state
+        (reference: database.go:616-710 — CREATE_DATABASE/CREATE_COLLECTION/
+        INSERT_VECTORS in batches)."""
+        import dataclasses as dc
+
+        commands: list[dict[str, Any]] = []
+        with self._lock:
+            for dbname in self.list_databases():
+                db = self._databases[dbname]
+                commands.append(make_command(CMD_CREATE_DATABASE, dbname))
+                for col in db.collections():
+                    commands.append(
+                        make_command(
+                            CMD_CREATE_COLLECTION,
+                            dbname,
+                            col.name,
+                            {
+                                "config": {
+                                    "metric": int(col.config.metric),
+                                    "hnsw": dc.asdict(col.config.hnsw),
+                                    "device_dtype": col.config.device_dtype,
+                                    "index_type": col.config.index_type,
+                                },
+                                # preserve the auto-ID high-water mark: the
+                                # live-vector stream alone would let a
+                                # restart reuse deleted vectors' ids
+                                "next_id": col._next_id,
+                            },
+                        )
+                    )
+                    live: list[dict[str, Any]] = []
+                    index = col._index
+                    if index is None:
+                        continue
+                    # iterate a STABLE copy: concurrent inserts mutate
+                    # id_to_slot under the index's own lock, which this
+                    # background reader does not hold
+                    rw = getattr(index, "_rw", None)
+                    if rw is not None:
+                        with rw.read():
+                            id_list = sorted(index.id_to_slot)
+                    else:
+                        while True:
+                            try:
+                                id_list = sorted(index.id_to_slot)
+                                break
+                            except RuntimeError:
+                                continue  # dict resized mid-iteration
+                    for vid in id_list:
+                        if not index.contains(vid):
+                            continue
+                        vec = col.get(vid)
+                        live.append(
+                            {
+                                "id": vid,
+                                "elements": vec.elements,
+                                "metadata": vec.metadata,
+                            }
+                        )
+                        if len(live) == batch_size:
+                            commands.append(
+                                make_command(
+                                    CMD_INSERT_VECTORS,
+                                    dbname,
+                                    col.name,
+                                    {"vectors": live},
+                                )
+                            )
+                            live = []
+                    if live:
+                        commands.append(
+                            make_command(
+                                CMD_INSERT_VECTORS, dbname, col.name, {"vectors": live}
+                            )
+                        )
+        return commands

@@ -144,8 +144,8 @@ def test_recall_and_state_crosses_to_jax(built, data):
 def test_unported_paths_raise_before_mutation(built, data):
     """What the port still leaves out raises NotImplementedError naming
     ROADMAP.md, before it changes anything: the descent search entry mode,
-    refine_rounds > 0, sharding and AOF replay. The flat index is ported:
-    a flat collection is created."""
+    refine_rounds > 0 and sharding. The flat index and AOF replay are
+    ported: a flat collection is created, a logged command applied."""
     base, _ = data
     port, _ = built
     before = port.export_graph_state()
@@ -170,9 +170,9 @@ def test_unported_paths_raise_before_mutation(built, data):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(device="cpu", tpu_config=TPUConfig(shard_devices=2)) \
             .create_database("x").create_collection(CollectionConfig(name="s"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.apply_command({"command_type": "CREATE_DATABASE"})
-    assert db.list_collections() == ["f"] and engine.list_databases() == ["db"]
+    engine.apply_command({"command_type": "CREATE_DATABASE", "database": "a"})
+    assert db.list_collections() == ["f"]
+    assert engine.list_databases() == ["a", "db"]
 
 
 def test_engine_surface_on_cpu(data):
@@ -211,9 +211,16 @@ def test_engine_surface_on_cpu(data):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(device="cpu", tpu_config=TPUConfig(shard_devices=2)) \
             .create_database("x").create_collection(CollectionConfig(name="s"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.apply_command({"command_type": "CREATE_DATABASE"})
-    assert db.list_collections() == ["c", "f"]
+    # the AOF-rewrite stream replays into an equal engine
+    engine3 = Engine(device="cpu")
+    for cmd in engine.get_optimized_commands():
+        engine3.apply_command(cmd)
+    db3 = engine3.get_database("db")
+    assert db.list_collections() == db3.list_collections() == ["c", "f"]
+    for name in ("c", "f"):
+        a, b = db.get_collection(name), db3.get_collection(name)
+        assert a.count() == b.count() and a._next_id == b._next_id
+        assert b.get_multiple(range(1, 121)) == a.get_multiple(range(1, 121))
 
 
 def test_padded_scan_base_leaves_the_build_unchanged(monkeypatch):

@@ -44,10 +44,51 @@ fused = FlatIndex(8, metric=DistanceMetric.L2, device="cpu", fused_min_cap=1024)
 fused.bulk_insert(list(range(1, 2101)), base[:2100])
 assert fused.search(base[2000], SearchParams(top_k=1))[0][0] == 2001
 assert fused._dev["scan"].dtype.is_floating_point is False
+# durability: a snapshot with an AOF tail, a recovery, and an AOF rewrite
+# recovered from the log alone
+import tempfile
+from scintirete_tpu_torch.persistence import PersistenceManager
+with tempfile.TemporaryDirectory() as tmp:
+    live = Engine(device="cpu")
+    pm = PersistenceManager(live, tmp + "/a")
+    col = live.create_database("d").create_collection(
+        CollectionConfig(name="c", hnsw=params)
+    )
+    pm.log_create_database("d")
+    pm.log_create_collection("d", "c", {"hnsw": {"m": 4, "seed": 1}})
+    for rows in (base[:200], base[200:260]):
+        ids = col.insert([(v, {"k": 1}) for v in rows])
+        pm.log_insert_vectors("d", "c", [
+            {"id": i, "elements": v.tolist(), "metadata": {"k": 1}}
+            for i, v in zip(ids, rows)
+        ])
+        if len(rows) == 200:
+            pm.save_snapshot()
+    pm.stop()
+    back = Engine(device="cpu")
+    pm = PersistenceManager(back, tmp + "/a")
+    report = pm.recover()
+    pm.stop()
+    assert report["rdb_loaded"] and report["aof_commands"] == 1, report
+    assert back.get_database("d").get_collection("c").get(250).metadata == {"k": 1}
+    pm = PersistenceManager(flat_engine := Engine(device="cpu"), tmp + "/b",
+                            aof_rewrite_size_bytes=1)
+    rows = flat_engine.create_database("d").create_collection(
+        CollectionConfig(name="f", index_type="flat")
+    )
+    ids = rows.insert([(v, None) for v in base[:300]])
+    pm.log_create_database("d")  # the log to compact
+    assert pm.maybe_rewrite_aof()
+    pm.stop()
+    pm = PersistenceManager(again := Engine(device="cpu"), tmp + "/b")
+    assert pm.recover()["aof_commands"] == 5
+    pm.stop()
+    assert again.get_database("d").get_collection("f").count() == 300
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.")
     or m == "scintirete_tpu" or m.startswith("scintirete_tpu.")
+    or m.split(".")[0] == "flatbuffers"
 )
 assert not leaked, leaked
 print("ok")
@@ -55,9 +96,10 @@ print("ok")
 
 
 def test_port_builds_and_searches_without_jax():
-    """A build, an append, a chunked insert and a flat insert, delete and
-    search on both flat routes leave neither jax nor any module of the JAX
-    package in sys.modules."""
+    """A build, an append, a chunked insert, a flat insert, delete and
+    search on both flat routes, a snapshot, a recovery and an AOF rewrite
+    leave neither jax, any module of the JAX package nor flatbuffers in
+    sys.modules."""
     out = subprocess.run(
         [sys.executable, "-c", _SCRIPT], capture_output=True, text=True,
         timeout=120, cwd=Path(__file__).resolve().parents[1],
