@@ -109,12 +109,42 @@ Phases, in order; any failure exits non-zero and prints no result line:
        rewritten (maybe_rewrite_aof, records of 100 vectors), recovered
        from the rewritten log alone, and must search bit for bit as the
        live one and hand out the same next id;
- 9. prints the kernels' JSON line (seven entries; launches of the main
-    path and of the durability phases), the card's line, and last
+ 9. D, the server (server/, composed in process as
+    `python -m scintirete_tpu_torch.cli.server_main` composes it): a
+    ScintireteService on the card over phase A's data directory (its RDB
+    and AOF tail), gRPC and HTTP on 127.0.0.1; times the recovery and the
+    warm-up and fails if the warm-up warned. Then, each with its gate:
+    A's 4,096 queries as 4 BatchSearch calls of 1,024 (ids equal to A's
+    live collection's search_batch_arrays on every query, recall@10 >=
+    0.95; QPS beside the same calls in process); the same queries as one
+    Search RPC each from 64 client threads through the batcher (QPS, p50
+    and p99 latency, its waves' widths; every answer equal to its
+    BatchSearch one, ids and distance bits, whatever wave it rode in); 64
+    of them over HTTP with Bearer auth (equal to the gRPC answers, bit for
+    bit) and one wrong password on both transports (the
+    reference's error); two InsertVectors of 4,096 onto the recovered
+    graph, timed apart (>= 0.99 of them find themselves first), and
+    DeleteVectors of 1,000 ids (none comes back); a flat cosine
+    collection created over gRPC and fed the 1M corpus in InsertVectors of
+    4,096 (vec/s with the AOF log), 4 BatchSearch calls of 1,024 and 256
+    single Search calls (recall@10 >= 0.99, distances within 1e-5 of
+    exact, singles equal to BatchSearch); the launches of pivot_entry_scan, knn_lane_topc_masked and
+    lane_topk_scan_packed_int8 in all this must be above 0. Then Save over
+    gRPC, the in-process server stops, and `python -m
+    scintirete_tpu_torch.cli.server_main -config <toml>` starts on the same
+    directory as a subprocess: 64 HNSW and 64 flat queries answer as
+    before, every acknowledged write reads back (each surviving inserted
+    HNSW vector in its own top 10, every flat row first for itself, the
+    collections' counts), a one-shot `cli.main` command runs, and SIGTERM
+    ends it with exit code 0; prints seconds from spawn to its first
+    answer, and one JSON line for the phase;
+10. prints the kernels' JSON line (seven entries; launches of the main
+    path, the durability phases and phase D), the card's line, and last
     {"ok": true, "device": {...}}.
 
-On one H100 the whole run takes about 4 minutes of the 20 it may take,
-the durability phases about a minute of it; it prints its total.
+On one H100 the whole run takes about 6 minutes of the 20 it may take,
+the durability phases about a minute of it and phase D about two; it
+prints its total.
 
 This script imports nothing of JAX and nothing of the JAX package, and
 reads no environment variable. The data is made from --seed.
@@ -127,9 +157,11 @@ import gc
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -146,6 +178,14 @@ APPEND_BATCHES, APPEND_BATCH = 4, 4096
 CHUNKED_BATCHES, CHUNKED_BATCH = 50, 1000
 AOF_INSERTS = 12  # phase C: logged inserts of APPEND_BATCH vectors
 REWRITE_ROWS = 100_000  # phase C: the flat collection the rewrite compacts
+# phase D: the server
+SERVE_PASSWORD = "smoke-password"
+SERVE_THREADS = 64  # client threads sending one Search RPC per query
+SERVE_HTTP = 64  # queries over HTTP
+SERVE_FLAT_ROWS = N_BASE  # the flat collection fed over gRPC
+SERVE_FLAT_SINGLES = 256  # flat single-query Search RPCs
+SERVE_RESTART = 64  # queries per collection checked across the restart
+INGEST_BATCH = 4096  # vectors per InsertVectors request
 # the card's published peaks (H100 SXM data sheet, dense): operations/s
 # by input type, and device-memory bytes/s
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
@@ -1424,9 +1464,13 @@ def compare_searches(name, live_res, rec_res, truth, gone):
     return rec_live, rec_back, len(differ), differ[:8]
 
 
-def persist_hnsw(dev, card, engine, col, everything, live, centers, rng):
+def persist_hnsw(dev, card, engine, col, everything, live, centers, rng,
+                 tmp):
     """Phase A: snapshot of the 1M HNSW collection, an AOF tail, recovery
-    into a fresh engine on the card."""
+    into a fresh engine on the card. Leaves the RDB and the AOF tail in
+    `tmp` for phase D. Returns the phase's launches and what phase D
+    checks against: the queries, their true rows, the deleted ids and the
+    live collection's search_batch_arrays answers (ids, dists)."""
     import torch
 
     from scintirete_tpu_torch import SearchParams
@@ -1439,57 +1483,60 @@ def persist_hnsw(dev, card, engine, col, everything, live, centers, rng):
     sp = SearchParams(top_k=K, ef_search=12)
     tail = points_near(rng, centers, 2 * APPEND_BATCH)
     out = {"phase": "A: HNSW 1M, RDB + AOF tail", "card": card}
-    with tempfile.TemporaryDirectory() as tmp:
-        pm = PersistenceManager(engine, tmp)  # everysec
-        ensure_space(tmp, snapshot_bound(col, tail.shape[1])
-                     + tail.size * 9 * 2, "A")
-        t0 = time.perf_counter()
-        pm.save_snapshot()
-        out["save_s"] = time.perf_counter() - t0
-        out["rdb_bytes"] = pm.rdb.size_bytes()
-        tail_ids, tags, log_s = [], [], []
-        for b in range(2):
-            rows = tail[b * APPEND_BATCH : (b + 1) * APPEND_BATCH]
-            ids, dt = log_inserts(pm, col, "smoke", "c", rows, f"tail{b}")
-            tail_ids += ids
-            tags += [{"tag": f"tail{b}", "row": i} for i in range(len(rows))]
-            log_s.append(dt)
-        out["log_insert_s"] = log_s
-        old = np.flatnonzero(live) + 1
-        dels = sorted(
-            [int(i) for i in rng.choice(old, 500, replace=False)]
-            + [int(i) for i in rng.choice(tail_ids, 500, replace=False)]
-        )
-        if col.delete(dels) != len(dels):
-            fail("A: delete must tombstone every id once")
-        pm.log_delete_vectors("smoke", "c", dels)
-        gone = set(dels)
-        corpus = np.concatenate([everything, tail])
-        alive = np.concatenate([live, np.ones(len(tail), bool)])
-        alive[np.asarray(dels) - 1] = False
-        queries = np.concatenate([
-            perturbed(rng, everything[live], N_QUERIES // 2),
-            perturbed(rng, tail, N_QUERIES // 2),
-        ])
-        truth = ground_truth(dev, queries, corpus, alive, 2)
-        live_res = search_all(col, queries, sp)
-        pm.stop()
-        out["aof_bytes"] = os.path.getsize(pm.aof.path)
+    pm = PersistenceManager(engine, tmp)  # everysec
+    ensure_space(tmp, snapshot_bound(col, tail.shape[1])
+                 + tail.size * 9 * 2, "A")
+    t0 = time.perf_counter()
+    pm.save_snapshot()
+    out["save_s"] = time.perf_counter() - t0
+    out["rdb_bytes"] = pm.rdb.size_bytes()
+    tail_ids, tags, log_s = [], [], []
+    for b in range(2):
+        rows = tail[b * APPEND_BATCH : (b + 1) * APPEND_BATCH]
+        ids, dt = log_inserts(pm, col, "smoke", "c", rows, f"tail{b}")
+        tail_ids += ids
+        tags += [{"tag": f"tail{b}", "row": i} for i in range(len(rows))]
+        log_s.append(dt)
+    out["log_insert_s"] = log_s
+    old = np.flatnonzero(live) + 1
+    dels = sorted(
+        [int(i) for i in rng.choice(old, 500, replace=False)]
+        + [int(i) for i in rng.choice(tail_ids, 500, replace=False)]
+    )
+    if col.delete(dels) != len(dels):
+        fail("A: delete must tombstone every id once")
+    pm.log_delete_vectors("smoke", "c", dels)
+    gone = set(dels)
+    corpus = np.concatenate([everything, tail])
+    alive = np.concatenate([live, np.ones(len(tail), bool)])
+    alive[np.asarray(dels) - 1] = False
+    queries = np.concatenate([
+        perturbed(rng, everything[live], N_QUERIES // 2),
+        perturbed(rng, tail, N_QUERIES // 2),
+    ])
+    truth = ground_truth(dev, queries, corpus, alive, 2)
+    live_res = search_all(col, queries, sp)
+    live_arrays = [col.search_batch_arrays(queries[s : s + BATCH], sp)
+                   for s in range(0, len(queries), BATCH)]
+    live_arrays = (np.concatenate([i for i, _ in live_arrays]),
+                   np.concatenate([d for _, d in live_arrays]))
+    pm.stop()
+    out["aof_bytes"] = os.path.getsize(pm.aof.path)
 
-        for op in (pivot_entry_scan, lane_scan, lane_scan_masked):
-            op.launches = 0
-        back = Engine(device=dev)
-        pm2 = PersistenceManager(back, tmp)
-        report, spans = timed_recover(pm2)
-        out.update(spans)
-        replay_masked = lane_scan_masked.launches
-        col2 = back.get_database("smoke").get_collection("c")
-        t0 = time.perf_counter()
-        rec_res = col2.search_batch(queries[:BATCH], sp)
-        torch.cuda.synchronize()
-        out["first_search_s"] = time.perf_counter() - t0
-        rec_res += search_all(col2, queries[BATCH:], sp)
-        pm2.stop()
+    for op in (pivot_entry_scan, lane_scan, lane_scan_masked):
+        op.launches = 0
+    back = Engine(device=dev)
+    pm2 = PersistenceManager(back, tmp)
+    report, spans = timed_recover(pm2)
+    out.update(spans)
+    replay_masked = lane_scan_masked.launches
+    col2 = back.get_database("smoke").get_collection("c")
+    t0 = time.perf_counter()
+    rec_res = col2.search_batch(queries[:BATCH], sp)
+    torch.cuda.synchronize()
+    out["first_search_s"] = time.perf_counter() - t0
+    rec_res += search_all(col2, queries[BATCH:], sp)
+    pm2.stop()
     out.update({k: report[k] for k in ("rdb_loaded", "aof_commands",
                                        "degraded")})
     if not report["rdb_loaded"] or report["aof_commands"] != 3 \
@@ -1511,7 +1558,7 @@ def persist_hnsw(dev, card, engine, col, everything, live, centers, rng):
              "pivot_entry_scan")
     del back, col2
     torch.cuda.empty_cache()
-    return launches
+    return launches, (queries, truth, gone, live_arrays)
 
 
 def persist_flat(dev, card, engine, col, queries, want, sp):
@@ -1750,6 +1797,510 @@ def persist_rewrite(dev, card, rng):
     torch.cuda.empty_cache()
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def packed_search(client, pb, db, col, queries, k, ef=None, per_call=BATCH):
+    """BatchSearch in calls of `per_call` queries: (ids u64 [B, k], dists
+    f32 [B, k], seconds of each call)."""
+    ids, dists, secs = [], [], []
+    for s in range(0, len(queries), per_call):
+        q = np.ascontiguousarray(queries[s : s + per_call], np.float32)
+        req = pb.BatchSearchRequest(
+            auth=pb.AuthInfo(password=SERVE_PASSWORD), db_name=db,
+            collection_name=col, queries_packed=q.tobytes(),
+            num_queries=len(q), dim=q.shape[1], top_k=k,
+        )
+        if ef is not None:
+            req.ef_search = ef
+        t0 = time.perf_counter()
+        resp = client.BatchSearch(req)
+        secs.append(time.perf_counter() - t0)
+        ids.append(np.frombuffer(resp.ids_packed, np.uint64).reshape(len(q), k))
+        dists.append(
+            np.frombuffer(resp.distances_packed, np.float32).reshape(len(q), k)
+        )
+    return np.concatenate(ids), np.concatenate(dists), secs
+
+
+def threaded_searches(client, pb, db, col, queries, k, ef, threads):
+    """One Search RPC per query, query i from client thread i mod
+    `threads`: (ids [B, k] u64, dists [B, k] f32, each RPC's seconds,
+    wall seconds)."""
+    ids = np.zeros((len(queries), k), np.uint64)
+    dists = np.full((len(queries), k), np.inf, np.float32)
+    lat = np.zeros(len(queries))
+    errors = []
+
+    def worker(t):
+        try:
+            for i in range(t, len(queries), threads):
+                req = pb.SearchRequest(
+                    auth=pb.AuthInfo(password=SERVE_PASSWORD), db_name=db,
+                    collection_name=col, query_vector=queries[i].tolist(),
+                    top_k=k,
+                )
+                if ef is not None:
+                    req.ef_search = ef
+                t0 = time.perf_counter()
+                resp = client.Search(req)
+                lat[i] = time.perf_counter() - t0
+                hits = [(r.id, r.distance) for r in resp.results]
+                ids[i, : len(hits)] = [h[0] for h in hits]
+                dists[i, : len(hits)] = [h[1] for h in hits]
+        except Exception as exc:  # reported below, after every join
+            errors.append(repr(exc))
+
+    pool = [threading.Thread(target=worker, args=(t,)) for t in range(threads)]
+    t0 = time.perf_counter()
+    for th in pool:
+        th.start()
+    for th in pool:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in pool):
+        fail(f"single-query Search RPCs failed: {errors[:3]}")
+    return ids, dists, lat, wall
+
+
+def http_search(port, db, col, query, k, ef, password):
+    """One Search over the HTTP gateway: (status, JSON body)."""
+    import urllib.error
+    import urllib.request
+
+    body = json.dumps({"query_vector": query.tolist(), "top_k": k,
+                       "ef_search": ef}).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/api/v1/databases/{db}/collections/{col}"
+        "/search", data=body, method="POST",
+        headers={"Authorization": f"Bearer {password}",
+                 "Content-Type": "application/json"},
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read())
+
+
+def insert_request(pb, db, col, rows):
+    return pb.InsertVectorsRequest(
+        auth=pb.AuthInfo(password=SERVE_PASSWORD), db_name=db,
+        collection_name=col,
+        vectors=[pb.Vector(elements=r) for r in rows.tolist()],
+    )
+
+
+def recall_of_ids(ids, truth) -> float:
+    rows = ids.astype(np.int64) - 1
+    return float(np.mean([len(set(r.tolist()) & set(t.tolist())) / K
+                          for r, t in zip(rows, truth)]))
+
+
+def latency_ms(lat):
+    return {"p50_ms": float(np.percentile(lat, 50) * 1e3),
+            "p99_ms": float(np.percentile(lat, 99) * 1e3)}
+
+
+def wave_stats(wave_log):
+    widths = np.asarray([w for w, _ in wave_log])
+    return {"waves": int(len(widths)), "mean_width": float(widths.mean()),
+            "p50_width": float(np.median(widths)),
+            "max_width": int(widths.max()),
+            "wave_ms_p50": float(np.median([s for _, s in wave_log]) * 1e3)}
+
+
+def same_as_batch(name, out, ids_s, d_s, ids_b, d_b):
+    """Single-query answers against the same queries' BatchSearch ones:
+    counts the queries whose ids, or distance bits, differ, and fails on
+    any (the batcher only stacks queries)."""
+    ids_differ = np.flatnonzero(np.any(ids_s != ids_b, axis=1))
+    bits_differ = np.flatnonzero(np.any(d_s != d_b, axis=1))
+    out[f"{name}_single_ids_differing_from_batch"] = int(len(ids_differ))
+    out[f"{name}_single_distance_bits_differing"] = int(len(bits_differ))
+    out[f"{name}_single_first_differing"] = bits_differ[:8].tolist()
+    if len(ids_differ) or len(bits_differ):
+        fail(f"D: {len(ids_differ)} {name} single-query answers have other "
+             f"ids and {len(bits_differ)} other distance bits than their "
+             "BatchSearch ones")
+
+
+def kernel_counters():
+    """name -> the wrapper object whose `launches` counts its kernel."""
+    from scintirete_tpu_torch.ops import packed_scan
+    from scintirete_tpu_torch.ops.lane_scan import lane_scan, lane_scan_masked
+    from scintirete_tpu_torch.ops.pivot_scan import pivot_entry_scan
+
+    return {
+        "pivot_entry_scan": pivot_entry_scan,
+        "knn_lane_topc": lane_scan,
+        "knn_lane_topc_masked": lane_scan_masked,
+        "lane_topk_scan_packed_int8": packed_scan.lane_topk_scan_packed_int8,
+        "lane_topk_scan_packed": packed_scan.lane_topk_scan_packed,
+        "lane_topk_scan_int8": packed_scan.lane_topk_scan_int8,
+        "lane_topk_scan": packed_scan.lane_topk_scan,
+    }
+
+
+def serve_hnsw(out, service, client, pb, port_http, a_case, centers, rng):
+    """Phase D on the recovered HNSW collection: BatchSearch, single
+    Search RPCs through the batcher, HTTP, auth, two inserts and a delete.
+    Returns (the ids deleted in all, the surviving inserted (ids, rows),
+    the answers to the first SERVE_RESTART queries after the writes)."""
+    import grpc
+
+    from scintirete_tpu_torch import SearchParams
+
+    queries, truth, gone, (live_ids, _) = a_case
+    ids_b, d_b, secs = packed_search(client, pb, "smoke", "c", queries, K, 12)
+    out["hnsw_batch_qps"] = len(queries) / sum(secs)
+    out["hnsw_batch_s"] = secs
+    out["hnsw_ids_differing_from_live"] = int(
+        np.any(ids_b != live_ids, axis=1).sum())
+    out["hnsw_recall"] = recall_of_ids(ids_b, truth)
+    col = service.engine.get_database("smoke").get_collection("c")
+    sp = SearchParams(top_k=K, ef_search=12)
+    inproc = []
+    for s in range(0, len(queries), BATCH):
+        t0 = time.perf_counter()
+        col.search_batch_arrays(queries[s : s + BATCH], sp)
+        inproc.append(time.perf_counter() - t0)
+    out["hnsw_inprocess_qps"] = len(queries) / sum(inproc)
+    if out["hnsw_ids_differing_from_live"]:
+        fail("D: BatchSearch ids differ from phase A's live collection on "
+             f"{out['hnsw_ids_differing_from_live']} queries")
+    if out["hnsw_recall"] < RECALL_GATE:
+        fail(f"D: HNSW recall@10 {out['hnsw_recall']:.4f} < {RECALL_GATE}")
+    if np.isin(ids_b, np.fromiter(gone, np.uint64, len(gone))).any():
+        fail("D: a deleted id came back from BatchSearch")
+
+    service.batcher.wave_log.clear()
+    ids_s, d_s, lat, wall = threaded_searches(
+        client, pb, "smoke", "c", queries, K, 12, SERVE_THREADS)
+    out["hnsw_single_qps"] = len(queries) / wall
+    out.update({f"hnsw_single_{k}": v for k, v in latency_ms(lat).items()})
+    out["hnsw_single_waves"] = wave_stats(service.batcher.wave_log)
+    # a query's answer must not depend on the wave it rode in
+    same_as_batch("hnsw", out, ids_s, d_s, ids_b, d_b)
+    out["hnsw_single_recall"] = recall_of_ids(ids_s, truth)
+    if out["hnsw_single_recall"] < RECALL_GATE:
+        fail(f"D: single-query recall@10 {out['hnsw_single_recall']:.4f}")
+
+    # the same queries over HTTP, one at a time (so each rides a wave of
+    # its own): the gRPC answers, ids and distance bits
+    t0 = time.perf_counter()
+    for i in range(SERVE_HTTP):
+        status, body = http_search(port_http, "smoke", "c", queries[i], K, 12,
+                                   SERVE_PASSWORD)
+        got_ids = [int(r["id"]) for r in body.get("results", [])]
+        # protojson writes a float field at the digits that round-trip f32
+        got_d = np.asarray([r.get("distance", 0.0) for r in body["results"]],
+                           np.float32)
+        if status != 200 or got_ids != ids_s[i].tolist() \
+                or not np.array_equal(got_d, d_s[i]):
+            fail(f"D: HTTP answer {i} ({status}: {got_ids}, {got_d}) "
+                 f"differs from its gRPC one ({ids_s[i]}, {d_s[i]})")
+    out["http_search_s"] = (time.perf_counter() - t0) / SERVE_HTTP
+    status, body = http_search(port_http, "smoke", "c", queries[0], K, 12,
+                               "wrong")
+    try:
+        client.Search(pb.SearchRequest(
+            auth=pb.AuthInfo(password="wrong"), db_name="smoke",
+            collection_name="c", query_vector=queries[0].tolist(), top_k=K))
+        fail("D: a wrong password was accepted over gRPC")
+    except grpc.RpcError as exc:
+        grpc_err = (exc.code().name, exc.details())
+    out["wrong_password"] = {"http": [status, body], "grpc": list(grpc_err)}
+    if (status, body.get("code"), body.get("error")) != (
+            401, 2000, "invalid credentials") or grpc_err != (
+            "UNAUTHENTICATED", "invalid credentials"):
+        fail(f"D: a wrong password got {out['wrong_password']}")
+
+    new = points_near(rng, centers, 2 * APPEND_BATCH)
+    ins_ids, ins_s = [], []
+    for b in range(2):
+        req = insert_request(
+            pb, "smoke", "c", new[b * APPEND_BATCH : (b + 1) * APPEND_BATCH])
+        t0 = time.perf_counter()
+        resp = client.InsertVectors(req)
+        ins_s.append(time.perf_counter() - t0)
+        ids = list(resp.inserted_ids)
+        if len(ids) != APPEND_BATCH or ids != list(range(ids[0], ids[0] + len(ids))) \
+                or (ins_ids and ids[0] != ins_ids[-1] + 1):
+            fail("D: InsertVectors must assign the next ids")
+        ins_ids += ids
+    out["hnsw_insert_s"] = ins_s
+    ins_ids = np.asarray(ins_ids, np.uint64)
+    ids_new, _, _ = packed_search(client, pb, "smoke", "c", new, K, 12)
+    out["hnsw_insert_self_first"] = float(np.mean(ids_new[:, 0] == ins_ids))
+    if out["hnsw_insert_self_first"] < SELF_GATE:
+        fail(f"D: inserted vectors find themselves first "
+             f"{out['hnsw_insert_self_first']:.4f} < {SELF_GATE}")
+
+    # live ids that the queries find: their deletion must show
+    old_live = np.unique(truth.astype(np.int64).ravel() + 1)
+    dels = sorted([int(i) for i in rng.choice(old_live, 500, replace=False)]
+                  + [int(i) for i in rng.choice(ins_ids, 500, replace=False)])
+    t0 = time.perf_counter()
+    resp = client.DeleteVectors(pb.DeleteVectorsRequest(
+        auth=pb.AuthInfo(password=SERVE_PASSWORD), db_name="smoke",
+        collection_name="c", ids=dels))
+    out["hnsw_delete_s"] = time.perf_counter() - t0
+    if resp.deleted_count != len(dels):
+        fail(f"D: DeleteVectors deleted {resp.deleted_count} of {len(dels)}")
+    all_gone = np.fromiter(gone | set(dels), np.uint64)
+    ids_a, d_a, _ = packed_search(client, pb, "smoke", "c", queries, K, 12)
+    if np.isin(ids_a, all_gone).any():
+        fail("D: a deleted id came back after DeleteVectors")
+    keep = ~np.isin(ins_ids, np.asarray(dels, np.uint64))
+    surviving = (ins_ids[keep], new[keep])
+    return all_gone, surviving, (ids_a[:SERVE_RESTART], d_a[:SERVE_RESTART])
+
+
+def serve_flat(out, service, client, pb, dev, base, flat_case):
+    """Phase D on a flat collection fed over gRPC: returns (its rows,
+    the queries, the answers to the first SERVE_RESTART of them)."""
+    queries, true_i = flat_case[0], flat_case[1]
+    n = SERVE_FLAT_ROWS
+    rows = base[:n]
+    if n < len(base):
+        true_i = ground_truth(dev, queries, rows, np.ones(n, bool), 2)
+    out["flat_rows"] = n
+    client.CreateCollection(pb.CreateCollectionRequest(
+        auth=pb.AuthInfo(password=SERVE_PASSWORD), db_name="smoke",
+        collection_name="flat", metric_type=pb.COSINE, index_type="flat"))
+    build_s, rpc_s = 0.0, []
+    for s in range(0, n, INGEST_BATCH):
+        t0 = time.perf_counter()
+        req = insert_request(pb, "smoke", "flat", rows[s : s + INGEST_BATCH])
+        t1 = time.perf_counter()
+        resp = client.InsertVectors(req)
+        rpc_s.append(time.perf_counter() - t1)
+        build_s += t1 - t0
+        if resp.inserted_count != len(req.vectors) \
+                or resp.inserted_ids[0] != s + 1:
+            fail("D: flat InsertVectors must assign ids 1..n in order")
+    out["flat_ingest_vec_s"] = n / sum(rpc_s)
+    out["flat_ingest_rpc_s"] = sum(rpc_s)
+    out["flat_ingest_request_build_s"] = build_s
+    out["flat_ingest_rpc_max_s"] = max(rpc_s)
+    _, _, first = packed_search(client, pb, "smoke", "flat", queries[:BATCH], K)
+    out["flat_first_search_s"] = first[0]  # the mirror's upload
+    ids_b, d_b, secs = packed_search(client, pb, "smoke", "flat", queries, K)
+    out["flat_batch_qps"] = len(queries) / sum(secs)
+    out["flat_recall"], out["flat_max_dist_err"] = check_flat_results(
+        "D flat BatchSearch", ids_b, d_b, queries, rows, true_i)
+    service.batcher.wave_log.clear()
+    sq = queries[:SERVE_FLAT_SINGLES]
+    ids_s, d_s, lat, wall = threaded_searches(
+        client, pb, "smoke", "flat", sq, K, None, SERVE_THREADS)
+    out["flat_single_qps"] = len(sq) / wall
+    out.update({f"flat_single_{k}": v for k, v in latency_ms(lat).items()})
+    out["flat_single_waves"] = wave_stats(service.batcher.wave_log)
+    same_as_batch("flat", out, ids_s, d_s, ids_b[: len(sq)], d_b[: len(sq)])
+    out["flat_single_recall"], err = check_flat_results(
+        "D flat Search", ids_s, d_s, sq, rows, true_i[:SERVE_FLAT_SINGLES])
+    out["flat_max_dist_err"] = max(out["flat_max_dist_err"], err)
+    return rows, queries, (ids_b[:SERVE_RESTART], d_b[:SERVE_RESTART])
+
+
+def restart_server(out, data_dir, dev, a_queries, flat_queries, before,
+                   all_gone, surviving, flat_rows, infos):
+    """Phase D's restart: `python -m scintirete_tpu_torch.cli.server_main`
+    on the saved directory answers as the in-process server did, every
+    acknowledged write reads back, a one-shot CLI command runs, and
+    SIGTERM ends it with exit code 0."""
+    from scintirete_tpu_torch.proto import scintirete_pb2 as pb
+    from scintirete_tpu_torch.server.grpc_server import GrpcClient
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    grpc_port, http_port = free_port(), free_port()
+    config = os.path.join(data_dir, "server.toml")
+    with open(config, "w") as fh:
+        fh.write(
+            f'[server]\ngrpc_port = {grpc_port}\nhttp_port = {http_port}\n'
+            f'passwords = ["{SERVE_PASSWORD}"]\n'
+            f'[persistence]\ndata_dir = "{data_dir}"\n'
+            "[observability]\nmetrics_enabled = false\n"
+            f'[tpu]\nplatform = "{dev.type}"\n'
+        )
+    log_path = os.path.join(data_dir, "server.log")
+    logf = open(log_path, "w")
+    t_spawn = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "scintirete_tpu_torch.cli.server_main",
+         "-config", config], cwd=root, stdout=logf, stderr=subprocess.STDOUT,
+    )
+    client = GrpcClient(f"127.0.0.1:{grpc_port}", timeout=600)
+    auth = pb.AuthInfo(password=SERVE_PASSWORD)
+
+    def server_failed(msg):
+        logf.flush()
+        with open(log_path) as fh:
+            tail = fh.read()[-3000:]
+        fail(f"D restart: {msg}; the server's log ends:\n{tail}")
+
+    import grpc
+
+    try:
+        deadline = time.time() + 600
+        while True:
+            try:
+                client.ListDatabases(pb.ListDatabasesRequest(auth=auth))
+                break
+            except grpc.RpcError:
+                if proc.poll() is not None:
+                    server_failed(f"exited with {proc.returncode} at start")
+                if time.time() > deadline:
+                    server_failed("no answer in 600 s")
+                time.sleep(0.1)
+        out["restart_first_answer_s"] = time.perf_counter() - t_spawn
+        hnsw_q, flat_q = a_queries[:SERVE_RESTART], flat_queries[:SERVE_RESTART]
+        t0 = time.perf_counter()
+        ids_h, d_h, _ = packed_search(client, pb, "smoke", "c", hnsw_q, K, 12)
+        out["restart_first_search_s"] = time.perf_counter() - t0
+        ids_f, d_f, _ = packed_search(client, pb, "smoke", "flat", flat_q, K)
+        for name, got, want in (("HNSW", (ids_h, d_h), before[0]),
+                                ("flat", (ids_f, d_f), before[1])):
+            if not np.array_equal(got[0], want[0]) \
+                    or np.abs(got[1] - want[1]).max() > 1e-6:
+                server_failed(f"{name} answers differ after the restart")
+        for name, want in infos.items():
+            got = client.GetCollectionInfo(pb.GetCollectionInfoRequest(
+                auth=auth, db_name="smoke", collection_name=name))
+            if (got.vector_count, got.deleted_count) != want:
+                server_failed(f"collection {name} counts "
+                              f"{(got.vector_count, got.deleted_count)}, want "
+                              f"{want}")
+        ins_ids, ins_rows = surviving
+        ids_r, _, _ = packed_search(client, pb, "smoke", "c", ins_rows, K, 64)
+        missing = int((~np.any(ids_r == ins_ids[:, None], axis=1)).sum())
+        out["restart_hnsw_inserts_missing"] = missing
+        if missing or np.isin(ids_r, all_gone).any():
+            server_failed(f"{missing} acknowledged HNSW inserts did not read "
+                          "back, or a deleted id came back")
+        t0 = time.perf_counter()
+        ids_r, _, _ = packed_search(client, pb, "smoke", "flat", flat_rows, 1,
+                                    per_call=4 * BATCH)
+        out["restart_flat_readback_s"] = time.perf_counter() - t0
+        wrong = int((ids_r[:, 0] != np.arange(1, len(flat_rows) + 1)).sum())
+        out["restart_flat_rows_not_first"] = wrong
+        if wrong:
+            server_failed(f"{wrong} flat rows do not find themselves first")
+        cli = subprocess.run(
+            [sys.executable, "-m", "scintirete_tpu_torch.cli.main", "-p",
+             str(grpc_port), "-a", SERVE_PASSWORD, "-d", "smoke",
+             "collection", "info", "flat"],
+            cwd=root, capture_output=True, text=True, timeout=120,
+        )
+        out["cli_one_shot"] = cli.stdout.strip()
+        if cli.returncode != 0 or f"vectors={len(flat_rows)}" not in cli.stdout:
+            server_failed(f"the one-shot CLI printed {cli.stdout!r} "
+                          f"{cli.stderr[-500:]!r}")
+        client.close()
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+        out["restart_sigterm_exit_s"] = time.perf_counter() - t0
+        out["restart_exit_code"] = rc
+        if rc != 0:
+            server_failed(f"exit code {rc} on SIGTERM")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        logf.close()
+
+
+def serve(dev, card, data_dir, a_case, base, flat_case, centers, seed):
+    """Phase D: the port's server on the card over phase A's directory."""
+    import torch
+
+    from scintirete_tpu_torch.config import Config
+    from scintirete_tpu_torch.proto import scintirete_pb2 as pb
+    from scintirete_tpu_torch.server.grpc_server import GrpcClient, GrpcServer
+    from scintirete_tpu_torch.server.http_server import HttpGateway
+    from scintirete_tpu_torch.server.service import ScintireteService
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 11)
+    out = {"phase": "D: server, recovered 1M HNSW + flat over gRPC / HTTP",
+           "card": card}
+    if SERVE_FLAT_ROWS < N_BASE:
+        out["cut"] = (f"flat collection cut to {SERVE_FLAT_ROWS} rows "
+                      "(fused_min_cap) to keep the phase near 120 s")
+    # the flat rows' AOF records (9 bytes a float) and a snapshot of both
+    # collections beside the one it replaces
+    ensure_space(data_dir, SERVE_FLAT_ROWS * DIM * 9
+                 + 2 * 4 * DIM * (N_BASE + 6 * APPEND_BATCH + SERVE_FLAT_ROWS)
+                 + os.path.getsize(os.path.join(data_dir, "vector.rdb")), "D")
+    counters = kernel_counters()
+    for op in counters.values():
+        op.launches = 0
+    cfg = Config()
+    cfg.server.passwords = [SERVE_PASSWORD]
+    cfg.persistence.data_dir = data_dir
+    t0 = time.perf_counter()
+    service = ScintireteService(cfg, device=dev)
+    report = service.start()
+    torch.cuda.synchronize()
+    out["recover_s"] = time.perf_counter() - t0
+    out.update({k: report[k] for k in ("rdb_loaded", "aof_commands",
+                                       "degraded")})
+    service._warm_thread.join(timeout=600)
+    out["warm"] = service._warm_info
+    if service._warm_thread.is_alive() or service._warm_error \
+            or not service._warm_info:
+        fail(f"D: the warm-up warned: {service._warm_error}")
+    if not report["rdb_loaded"] or report["aof_commands"] != 3 \
+            or report["degraded"]:
+        fail(f"D: recover() reported {report}")
+    grpc_server = GrpcServer(service, "127.0.0.1", 0)
+    gateway = HttpGateway(service, "127.0.0.1", 0)
+    grpc_server.start()
+    gateway.start()
+    client = GrpcClient(f"127.0.0.1:{grpc_server.port}", timeout=600)
+    auth = pb.AuthInfo(password=SERVE_PASSWORD)
+    try:
+        all_gone, surviving, hnsw_before = serve_hnsw(
+            out, service, client, pb, gateway.port, a_case, centers, rng)
+        flat_rows, flat_queries, flat_before = serve_flat(
+            out, service, client, pb, dev, base, flat_case)
+        resp = client.Save(pb.SaveRequest(auth=auth))
+        out["save_s"] = resp.duration_seconds
+        out["rdb_bytes"] = resp.snapshot_size
+        infos = {}
+        for name in ("c", "flat"):
+            info = client.GetCollectionInfo(pb.GetCollectionInfoRequest(
+                auth=auth, db_name="smoke", collection_name=name))
+            infos[name] = (info.vector_count, info.deleted_count)
+    finally:
+        client.close()
+        gateway.stop()
+        grpc_server.stop()
+        service.stop()
+    launches = {name: op.launches for name, op in counters.items()}
+    out["launches"] = launches
+    del service
+    gc.collect()
+    torch.cuda.empty_cache()
+    restart_server(out, data_dir, dev, a_case[0], flat_queries,
+                   (hnsw_before, flat_before), all_gone, surviving,
+                   flat_rows, infos)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps(out), flush=True)
+    for name in ("pivot_entry_scan", "knn_lane_topc_masked",
+                 "lane_topk_scan_packed_int8"):
+        if launches[name] <= 0:
+            fail(f"D: {name} was not launched by the server's path")
+    return launches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="data seed")
@@ -1822,14 +2373,21 @@ def main() -> None:
     launches["knn_lane_topc_masked"], everything, live = run_append(
         dev, col, base, valid, centers, rng
     )
-    add_launches(launches, persist_hnsw(
-        dev, card, engine, col, everything, live, centers, rng
-    ))
-    del col, engine
-    torch.cuda.empty_cache()
-    run_chunked(dev, args.seed)
-    launches.update(run_flat(dev, base, flat_case, card))
-    add_launches(launches, persist_aof_only(dev, card, args.seed))
+    # phase A's directory (the 1M HNSW RDB and its AOF tail) is where
+    # phase D's server starts
+    with tempfile.TemporaryDirectory() as serve_dir:
+        a_launches, a_case = persist_hnsw(
+            dev, card, engine, col, everything, live, centers, rng, serve_dir
+        )
+        add_launches(launches, a_launches)
+        del col, engine
+        torch.cuda.empty_cache()
+        run_chunked(dev, args.seed)
+        launches.update(run_flat(dev, base, flat_case, card))
+        add_launches(launches, persist_aof_only(dev, card, args.seed))
+        add_launches(launches, serve(
+            dev, card, serve_dir, a_case, base, flat_case, centers, args.seed
+        ))
 
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     meta = {

@@ -5,7 +5,8 @@ The JAX package `scintirete_tpu` stays the reference; this package keeps
 its module names (`ops`, `index`, `engine`) so each counterpart is easy to
 find. It imports `torch` and never `jax`, and nothing of the JAX package:
 the jax-free modules it needs (`types`, `errors`, `config`,
-`utils.rwlock`, `native.build` with its C++ source) are copied into it.
+`utils.rwlock`, `native.build` with its C++ source, the proto, the
+audit log, metrics and embedding client) are copied into it.
 The C++ link-application library is built with g++ into `build/native/`
 and the CUDA kernels with nvcc into `build/kernels/`, both beside the
 package, at first use.
@@ -19,6 +20,8 @@ its candidate lists and must match the reference's.
 """
 
 import torch
+
+__version__ = "0.1.0"
 
 from scintirete_tpu_torch.errors import ScintireteError  # noqa: F401
 from scintirete_tpu_torch.types import (  # noqa: F401

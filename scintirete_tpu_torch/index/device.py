@@ -67,8 +67,12 @@ PIVOT_CAP = 262144
 
 def _cmp_dist(q, q_sq, q_norm, vecs, v_sq, metric):
     """Comparison-form distance of q [B, D] against gathered vecs [B, K, D],
-    in true f32 (the JAX version's Precision.HIGHEST)."""
-    dots = torch.bmm(vecs.float(), q.float()[:, :, None])[:, :, 0]
+    in true f32 (the JAX version's Precision.HIGHEST). The dot is an
+    elementwise product and a sum over D, not a batched matrix product: a
+    query's distances must not depend on the other queries of its batch
+    (the server's batcher stacks unrelated requests), and torch.bmm picks
+    kernels, and so summation orders, by the batch's size."""
+    dots = (vecs.float() * q.float()[:, None, :]).sum(dim=-1)
     if metric == _IP:
         return -dots
     if metric == _L2:

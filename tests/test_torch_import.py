@@ -84,6 +84,34 @@ with tempfile.TemporaryDirectory() as tmp:
     assert pm.recover()["aof_commands"] == 5
     pm.stop()
     assert again.get_database("d").get_collection("f").count() == 300
+    # the server: the service on the CPU, one RPC over gRPC and one over HTTP
+    import json
+    import urllib.request
+    from scintirete_tpu_torch.config import Config
+    from scintirete_tpu_torch.proto import scintirete_pb2 as pb
+    from scintirete_tpu_torch.server.grpc_server import GrpcClient, GrpcServer
+    from scintirete_tpu_torch.server.http_server import HttpGateway
+    from scintirete_tpu_torch.server.service import ScintireteService
+    cfg = Config()
+    cfg.server.passwords = ["pw"]
+    cfg.persistence.data_dir = tmp + "/server"
+    svc = ScintireteService(cfg, device="cpu")
+    svc.start()
+    server, gateway = GrpcServer(svc, port=0), HttpGateway(svc, port=0)
+    server.start()
+    gateway.start()
+    client = GrpcClient(f"127.0.0.1:{server.port}", timeout=10)
+    client.CreateDatabase(pb.CreateDatabaseRequest(
+        auth=pb.AuthInfo(password="pw"), name="d"))
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{gateway.port}/api/v1/databases",
+        headers={"Authorization": "Bearer pw"})
+    with urllib.request.urlopen(req, timeout=10) as resp:
+        assert json.loads(resp.read())["names"] == ["d"]
+    client.close()
+    gateway.stop()
+    server.stop()
+    svc.stop()
 leaked = sorted(
     m for m in sys.modules
     if m == "jax" or m.startswith("jax.")
@@ -97,7 +125,8 @@ print("ok")
 
 def test_port_builds_and_searches_without_jax():
     """A build, an append, a chunked insert, a flat insert, delete and
-    search on both flat routes, a snapshot, a recovery and an AOF rewrite
+    search on both flat routes, a snapshot, a recovery, an AOF rewrite and
+    the server's service answering one request over gRPC and one over HTTP
     leave neither jax, any module of the JAX package nor flatbuffers in
     sys.modules."""
     out = subprocess.run(
