@@ -138,13 +138,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
     collections' counts), a one-shot `cli.main` command runs, and SIGTERM
     ends it with exit code 0; prints seconds from spawn to its first
     answer, and one JSON line for the phase;
-10. prints the kernels' JSON line (seven entries; launches of the main
-    path, the durability phases and phase D), the card's line, and last
-    {"ok": true, "device": {...}}.
+10. E, the rest of the HNSW index (one JSON line for the phase):
+    E1, right after phase 4's deletes, searches the main path's graph
+    (kNN upper layers) through Collection's index in pivot mode, mid
+    greedy, mid beam 4 and the pure greedy walk (HNSWIndex's entry_mode,
+    ef_upper, descent_mid): QPS over the 4,096 queries in
+    search_batch_arrays calls of 1,024, recall@10 against the survivors,
+    the mean serial steps of a sub-batch above and at layer 0, and for
+    each descent mode how many of 1,024 queries change ids or distance
+    bits between one batch and waves of 32; gates: mid greedy >= 0.98,
+    mid beam 4 >= 0.99, no deleted id in any mode, pivot_entry_scan
+    launched; then pivot_entry_scan is held to its plain version at the
+    mid scan's own shape (the graph's mid table, the 4,096 queries in
+    sub-batches of 256; atol 1e-4, ids equal but for ties), launches not
+    counted. After phase A frees its collection: E2 builds the corpus
+    afresh with upper_mode="seq" (seconds of layer 0 and of the upper
+    phase, its rounds, tiles and serial steps), searches it by the pure
+    greedy walk, pure beams 2 and 4 and mid greedy (gate: pure beam 4 >=
+    0.98) and checks its mid scan as E1's; E3 builds it with refine_rounds=1 (build and refine
+    seconds; layer 0's kNN@10 overlap against the exact neighbors on
+    4,096 sampled rows before and after the pass, which must not fall;
+    pivot recall@10 >= 0.95). Each index is freed before the next is
+    built, and knn_lane_topc and pivot_entry_scan must have been launched
+    by E2 and E3;
+11. prints the kernels' JSON line (seven entries; launches of the main
+    path, phase E, the durability phases and phase D), the card's line,
+    and last {"ok": true, "device": {...}}.
 
-On one H100 the whole run takes about 6 minutes of the 20 it may take,
-the durability phases about a minute of it and phase D about two; it
-prints its total.
+On one H100 the whole run takes about 7 minutes of the 20 it may take,
+the durability phases about a minute of it, phase D about two and phase
+E about one and a half; it prints its total.
 
 This script imports nothing of JAX and nothing of the JAX package, and
 reads no environment variable. The data is made from --seed.
@@ -1180,6 +1203,239 @@ def run_chunked(dev, seed):
     if rec < CHUNKED_GATE:
         fail(f"chunked recall@10 {rec:.4f} < {CHUNKED_GATE}")
     return per_batch
+
+
+# phase E: the descent and mid-layer entries, the seq upper build and
+# the refined build. name -> (entry_mode, ef_upper, descent_mid)
+E_MODES = {
+    "pivot": ("pivot", 1, True),
+    "mid greedy": ("descent", 1, True),
+    "mid beam 4": ("descent", 4, True),
+    "pure greedy": ("descent", 1, False),
+    "pure beam 2": ("descent", 2, False),
+    "pure beam 4": ("descent", 4, False),
+}
+# recall@10 gates at ef 12 (E1: kNN upper layers; E2: seq upper layers;
+# E3: the refined build in pivot mode); other modes are printed only
+E1_GATES = {"mid greedy": 0.98, "mid beam 4": 0.99}
+E2_GATES = {"pure beam 4": 0.98}
+E3_GATE = 0.95
+E_WAVE, E_WAVE_ROWS = 32, 1024  # waves of 32 against one batch of 1,024
+E3_ROWS = N_BASE  # the refined build's corpus (cut if phase E runs long)
+E3_SAMPLE = 4096  # rows whose layer-0 kNN@10 overlap is taken
+
+
+def e_mode(idx, name):
+    idx.entry_mode, idx.ef_upper, idx.descent_mid = E_MODES[name]
+
+
+def e_search(tag, idx, queries, truth, gone, names, gates, waves=()):
+    """Search `queries` (batches of BATCH, k = 10, ef 12) in each named
+    mode of E_MODES on the index `idx`: QPS, recall@10 against `truth`
+    (rows), the mean serial loop steps of a sub-batch above and at layer 0,
+    and for the modes in `waves` how many of E_WAVE_ROWS queries change
+    ids or distance bits between one batch and waves of E_WAVE. Fails on a
+    missed gate or a deleted id. Returns {mode: numbers}."""
+    import torch
+
+    from scintirete_tpu_torch import SearchParams
+
+    sp = SearchParams(top_k=K, ef_search=12)
+    dev_idx = idx._get_device()
+    out = {}
+    for name in names:
+        e_mode(idx, name)
+        idx.search_batch_arrays(queries[:BATCH], sp)  # mirror / mid table
+        dev_idx.steps.update(batches=0, upper=0, layer0=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = np.concatenate([
+            idx.search_batch_arrays(queries[s : s + BATCH], sp)[0]
+            for s in range(0, len(queries), BATCH)
+        ])
+        secs = time.perf_counter() - t0
+        st = dict(dev_idx.steps)
+        r = {"qps": len(queries) / secs, "recall": recall_of_ids(ids, truth),
+             "upper_steps": st["upper"] / st["batches"],
+             "layer0_steps": st["layer0"] / st["batches"]}
+        if np.any(ids == 0):
+            fail(f"E {tag} {name}: a query got fewer than {K} hits")
+        if gone and set(ids.ravel().tolist()) & gone:
+            fail(f"E {tag} {name}: a deleted id came back")
+        if name in waves:
+            q = queries[:E_WAVE_ROWS]
+            ids_b, d_b = idx.search_batch_arrays(q, sp)
+            parts = [idx.search_batch_arrays(q[w : w + E_WAVE], sp)
+                     for w in range(0, len(q), E_WAVE)]
+            ids_w = np.concatenate([p[0] for p in parts])
+            d_w = np.concatenate([p[1] for p in parts])
+            r["wave_ids_differ"] = int(np.any(ids_w != ids_b, axis=1).sum())
+            r["wave_bits_differ"] = int(np.any(
+                d_w.view(np.uint32) != d_b.view(np.uint32), axis=1).sum())
+        log(f"E {tag} {name}: {r['qps']:.1f} QPS, recall@10 "
+            f"{r['recall']:.4f}, steps a sub-batch {r['upper_steps']:.1f} "
+            f"above layer 0 + {r['layer0_steps']:.1f} at it"
+            + (f", waves of {E_WAVE} vs one batch of {E_WAVE_ROWS}: "
+               f"{r['wave_ids_differ']} ids / {r['wave_bits_differ']} "
+               "distance bits differ" if name in waves else ""))
+        if name in gates and r["recall"] < gates[name]:
+            fail(f"E {tag} {name}: recall@10 {r['recall']:.4f} < "
+                 f"{gates[name]}")
+        out[name] = r
+    e_mode(idx, "pivot")
+    return out
+
+
+def check_mid_scan(tag, idx, queries):
+    """pivot_entry_scan against its plain version at the mid scan's own
+    shape: the graph's mid table (members pre-normalized, their squared
+    norms and tombstones) against `queries` in the sub-batches the mid
+    entry scans them in, at the pivot check's tolerance. Its launches are
+    taken off the wrapper's count again. Returns the largest distance
+    difference."""
+    import torch
+
+    from scintirete_tpu_torch.ops.pivot_scan import (
+        pivot_entry_scan,
+        pivot_entry_scan_plain,
+    )
+
+    dev_idx = idx._get_device()
+    a = dev_idx.graph.arrays
+    metric = int(idx.store.metric)
+    mid_del = a["deleted"][a["mid_slots"]].float()
+    counted = pivot_entry_scan.launches
+    worst, least = 0.0, 1.0
+    for s in range(0, len(queries), dev_idx.max_batch):
+        q = torch.from_numpy(queries[s : s + dev_idx.max_batch]).to(
+            dev_idx.device)
+        if metric == 2:
+            q = q / q.norm(dim=1, keepdim=True).clamp_min(1e-30)
+        args = (q, a["mid_vecs"], a["mid_sq"], mid_del, metric)
+        d_k, i_k = pivot_entry_scan(*args)
+        d_p, i_p = pivot_entry_scan_plain(*args)
+        torch.cuda.synchronize()
+        err, share = compare(
+            f"{tag} mid scan B={q.shape[0]} R={mid_del.shape[0]}", d_k, i_k,
+            d_p, i_p, atol=1e-4, rtol=1e-5,
+        )
+        worst, least = max(worst, err), min(least, share)
+    pivot_entry_scan.launches = counted
+    log(f"{tag} mid scan: pivot_entry_scan B={dev_idx.max_batch} "
+        f"R={mid_del.shape[0]} ({int(mid_del.sum())} deleted) against plain "
+        f"on {len(queries)} queries: max|dd|={worst:.3g} ids equal "
+        f"{least:.6f}")
+    return worst
+
+
+def run_descent_modes(col, queries, truth, del_ids):
+    """E1: the main path's graph (kNN upper layers, 1% deleted), searched
+    in pivot mode and through the descent entries; then the mid scan's
+    kernel is held to its plain version on this graph's mid table.
+    Returns the phase's numbers; the index is left in pivot mode."""
+    idx = col._index
+    t0 = time.perf_counter()
+    out = e_search("E1 (kNN uppers)", idx, queries, truth, set(del_ids),
+                   ["pivot", "mid greedy", "mid beam 4", "pure greedy"],
+                   E1_GATES, waves=("mid greedy", "mid beam 4",
+                                    "pure greedy"))
+    g = idx._get_device().graph
+    out["mid_level"] = g.mid_level
+    out["mid_members"] = int(g.arrays["mid_slots"].shape[0])
+    out["mid_scan_max_abs_err"] = check_mid_scan("E1", idx, queries)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"E1: mid layer {g.mid_level} ({out['mid_members']} members), "
+        f"phase {out['phase_s']:.1f} s")
+    return out
+
+
+def knn10_overlap(dev, base, adj, rows):
+    """Mean share of each sampled row's exact 10 nearest neighbors (cosine,
+    itself excluded) that its adjacency row holds."""
+    import torch
+
+    from scintirete_tpu_torch.ops.topk import brute_force_topk
+
+    b = torch.from_numpy(base).to(dev)
+    valid = torch.ones(len(base), dtype=torch.bool, device=dev)
+    hits = 0
+    for s in range(0, len(rows), BATCH):
+        r = rows[s : s + BATCH]
+        _, idx = brute_force_topk(torch.from_numpy(base[r]).to(dev), b, valid,
+                                  2, K + 1)
+        idx = idx.cpu().numpy()
+        for row, nn, a in zip(r, idx, adj[r]):
+            true10 = [x for x in nn.tolist() if x != row][:K]
+            hits += len(set(true10) & set(a[a >= 0].tolist()))
+    return hits / (K * len(rows))
+
+
+def run_seq_and_refine(dev, base, queries, truth, seed):
+    """E2: a fresh 1M build with seq upper layers, searched by the pure
+    walk and the mid entry. E3: a fresh build with refine_rounds=1 (layer
+    0's kNN@10 overlap before and after the pass, pivot-mode recall).
+    Each index is freed before the next is built."""
+    import dataclasses
+
+    import torch
+
+    from scintirete_tpu_torch import DistanceMetric
+    from scintirete_tpu_torch.index.hnsw import HNSWIndex
+
+    out = {}
+    n = len(base)
+    t0 = time.perf_counter()
+    idx = HNSWIndex(DIM, hnsw_params(), DistanceMetric.COSINE, device=dev,
+                    upper_mode="seq")
+    idx.bulk_insert(list(range(1, n + 1)), base)
+    torch.cuda.synchronize()
+    st = idx.build_stats
+    e2 = {"build_s": time.perf_counter() - t0,
+          **{k: st[k] for k in ("layer0_s", "upper_s", "upper_rounds",
+                                "upper_tiles", "upper_steps")}}
+    log(f"E2 seq build {n}: {e2['build_s']:.2f} s (layer 0 "
+        f"{e2['layer0_s']:.2f} s, upper layers {e2['upper_s']:.2f} s in "
+        f"{e2['upper_rounds']} rounds, {e2['upper_tiles']} tiles, "
+        f"{e2['upper_steps']} serial steps)")
+    e2.update(e_search("E2 (seq uppers)", idx, queries, truth, set(),
+                       ["pure greedy", "pure beam 2", "pure beam 4",
+                        "mid greedy"], E2_GATES))
+    e2["mid_scan_max_abs_err"] = check_mid_scan("E2", idx, queries)
+    out["E2"] = e2
+    del idx, st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    n3 = min(E3_ROWS, n)
+    rows3 = base[:n3]
+    params = dataclasses.replace(hnsw_params(), refine_rounds=1)
+    t0 = time.perf_counter()
+    idx = HNSWIndex(DIM, params, DistanceMetric.COSINE, device=dev)
+    idx.bulk_insert(list(range(1, n3 + 1)), rows3)
+    torch.cuda.synchronize()
+    st = idx.build_stats
+    e3 = {"rows": n3, "build_s": time.perf_counter() - t0,
+          "layer0_s": st["layer0_s"], "refine_s": st["refine_s"]}
+    sample = np.random.default_rng(seed + 9).choice(n3, E3_SAMPLE,
+                                                    replace=False)
+    e3["knn10_before"] = knn10_overlap(dev, rows3, st["unrefined0"], sample)
+    e3["knn10_after"] = knn10_overlap(dev, rows3,
+                                      idx.store.neighbors0[:n3], sample)
+    truth3 = (truth if n3 == n else
+              ground_truth(dev, queries, rows3, np.ones(n3, bool), 2))
+    e3.update(e_search("E3 (refined)", idx, queries, truth3, set(),
+                       ["pivot"], {"pivot": E3_GATE}))
+    log(f"E3 refined build {n3}: {e3['build_s']:.2f} s (layer 0 "
+        f"{e3['layer0_s']:.2f} s, refine pass {e3['refine_s']:.2f} s); "
+        f"layer-0 kNN@10 overlap on {E3_SAMPLE} rows {e3['knn10_before']:.4f}"
+        f" before, {e3['knn10_after']:.4f} after")
+    if e3["knn10_after"] < e3["knn10_before"]:
+        fail("E3: the refine pass lowered layer 0's kNN@10 overlap")
+    out["E3"] = e3
+    del idx, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_flat_results(name, ids, dists, queries, base, truth, gone=()):
@@ -2370,6 +2626,20 @@ def main() -> None:
         run_main_path(dev, N_BASE, N_QUERIES, args.seed)
     )
     replay_build_scans(dev, base, build_s, launches["knn_lane_topc"])
+    # phase E1: the main path's graph through the descent entries
+    t_e = time.perf_counter()
+    counters = kernel_counters()
+    counters["pivot_entry_scan"].launches = 0
+    e_out = {"phase": "E: descent / mid entry, seq upper build, refine",
+             "card": card,
+             "E1": run_descent_modes(col, flat_case[0], flat_case[3],
+                                     flat_case[2])}
+    e1_pivot = counters["pivot_entry_scan"].launches
+    if e1_pivot <= 0:
+        fail("E1: pivot_entry_scan was not launched")
+    launches["pivot_entry_scan"] += e1_pivot
+    e_out["launches"] = {"pivot_entry_scan": e1_pivot, "knn_lane_topc": 0}
+    e_s = time.perf_counter() - t_e
     launches["knn_lane_topc_masked"], everything, live = run_append(
         dev, col, base, valid, centers, rng
     )
@@ -2381,7 +2651,27 @@ def main() -> None:
         )
         add_launches(launches, a_launches)
         del col, engine
+        gc.collect()
         torch.cuda.empty_cache()
+        # phases E2 and E3: fresh 1M builds, one graph on the card at a time
+        t_e = time.perf_counter()
+        for name in ("pivot_entry_scan", "knn_lane_topc"):
+            counters[name].launches = 0
+        e_out.update(run_seq_and_refine(dev, base, flat_case[0],
+                                        flat_case[1], args.seed))
+        for name in ("pivot_entry_scan", "knn_lane_topc"):
+            if counters[name].launches <= 0:
+                fail(f"E2/E3: {name} was not launched")
+            launches[name] += counters[name].launches
+            e_out["launches"][name] += counters[name].launches
+        e_out["phase_s"] = e_s + time.perf_counter() - t_e
+        # the mid scans' kernel checks join the pivot kernel's error
+        worst, timing, bound = checks["pivot_entry_scan"]
+        checks["pivot_entry_scan"] = (
+            max(worst, e_out["E1"]["mid_scan_max_abs_err"],
+                e_out["E2"]["mid_scan_max_abs_err"]), timing, bound)
+        log(f"phase E in {e_out['phase_s']:.1f} s")
+        print(json.dumps(e_out), flush=True)
         run_chunked(dev, args.seed)
         launches.update(run_flat(dev, base, flat_case, card))
         add_launches(launches, persist_aof_only(dev, card, args.seed))

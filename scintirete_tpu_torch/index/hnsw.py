@@ -1,12 +1,15 @@
 """HNSWIndex: the public index type (ids in, results out). Port of
 `scintirete_tpu/index/hnsw.py`.
 
-Search runs the pivot-entry batched search (device.py) on the index's
-torch device; mutations go through the host store and the device mirror
-re-syncs lazily (version keyed). `bulk_insert` picks one of four paths,
-as the JAX package does: the exact-kNN build (knn_build.build) into an
-empty index, or of the union when an append at least quadruples the
-collection; the batched append (knn_build.append_batch) onto a built
+Search runs the batched search (device.py) on the index's torch device:
+pivot entry by default, or the descent through the upper layers
+(`entry_mode="descent"`, from the mid-entry layer unless `descent_mid` is
+False, `ef_upper` wide); mutations go through the host store and the
+device mirror re-syncs lazily (version keyed). `bulk_insert` picks one of
+four paths, as the JAX package does: the exact-kNN build (knn_build.build,
+its upper layers by `upper_mode`: "knn" or "seq") into an empty index, or
+of the union when an append at least quadruples the collection; the
+batched append (knn_build.append_batch) onto a built
 graph; otherwise chunked device insertion (bulk.py with
 DeviceIndex.build_descent), or host inserts for small batches.
 
@@ -74,9 +77,19 @@ class HNSWIndex:
         device_search_min_size: int = 0,
         device: str | torch.device = "cuda",
         build_chunk_size: int = 1024,
+        entry_mode: str = "pivot",
+        ef_upper: int = 1,
+        descent_mid: bool = True,
+        upper_mode: str = "knn",
     ):
         params = params or HNSWParams()
         params.validate()
+        if entry_mode not in ("pivot", "descent"):
+            raise ValueError(f"entry_mode must be 'pivot' or 'descent', "
+                             f"not {entry_mode!r}")
+        if upper_mode not in ("knn", "seq"):
+            raise ValueError(f"upper_mode must be 'knn' or 'seq', "
+                             f"not {upper_mode!r}")
         self.device = resolve_device(device)
         self.store = GraphStore(dim, params, metric)
         self.id_to_slot: dict[int, int] = {}
@@ -87,6 +100,16 @@ class HNSWIndex:
         self.build_chunk_size = build_chunk_size
         # below this many live vectors, searches stay on the host
         self.device_search_min_size = device_search_min_size
+        # search entry (DeviceIndex.search_submit): "pivot", or "descent"
+        # through the upper layers, from the mid-entry layer when
+        # descent_mid, `ef_upper` wide above layer 0
+        self.entry_mode = entry_mode
+        self.ef_upper = ef_upper
+        self.descent_mid = descent_mid
+        # upper-layer constructor of a bulk build (knn_build.build)
+        self.upper_mode = upper_mode
+        # phase seconds and counts of the last bulk build (knn_build.build)
+        self.build_stats: dict = {}
         self._device = None  # lazy DeviceIndex
         # device-resident scan base + layer-0 adjacency kept between
         # appends (knn_build.append_batch); build() re-seeds it
@@ -184,7 +207,7 @@ class HNSWIndex:
                 )
                 slots = knn_build.build(
                     tmp, vectors, self.device,
-                    scan_cache=self._append_scan_cache,
+                    scan_cache=self._append_scan_cache, **self._build_args(),
                 )
                 with self._rw.write():
                     self.store = tmp
@@ -209,7 +232,7 @@ class HNSWIndex:
                 )
                 slots = knn_build.build(
                     tmp, all_vecs, self.device,
-                    scan_cache=self._append_scan_cache,
+                    scan_cache=self._append_scan_cache, **self._build_args(),
                 )
                 all_ids = [int(v) for v in old_ids] + [int(v) for v in ids]
                 new_map = dict(zip(all_ids, (int(s) for s in slots)))
@@ -258,6 +281,10 @@ class HNSWIndex:
                     chunk_size=self.build_chunk_size,
                     write_ctx=self._rw.write, on_slots=on_slots,
                 )
+
+    def _build_args(self) -> dict:
+        self.build_stats = {}
+        return {"upper_mode": self.upper_mode, "stats": self.build_stats}
 
     def _register_slot(self, vector_id: int, slot: int) -> None:
         self.id_to_slot[vector_id] = slot
@@ -356,6 +383,7 @@ class HNSWIndex:
                 "dev",
                 self._get_device().search_submit(
                     self.store, queries, params.top_k, max(ef, params.top_k),
+                    **self._search_args(),
                 ),
             )
 
@@ -391,9 +419,13 @@ class HNSWIndex:
             ef = params.ef_search if params.ef_search else self.store.params.ef_search
             ef = max(ef, params.top_k)
             return self._get_device().search(
-                self.store, queries, params.top_k, ef
+                self.store, queries, params.top_k, ef, **self._search_args()
             )
         return self._host_search(queries, params)
+
+    def _search_args(self) -> dict:
+        return {"entry_mode": self.entry_mode, "ef_upper": self.ef_upper,
+                "descent_mid": self.descent_mid}
 
     def _host_search(self, queries, params):
         slots_b, dists_b = [], []

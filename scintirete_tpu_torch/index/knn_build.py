@@ -7,9 +7,16 @@ candidates from an exact scan against the prefix built so far (the
 `knn_lane_topc` kernel), plus long-range candidates from the first
 _ROUND0 rows (the global hubs); then neighbor selection (nearest-M or the
 diversity heuristic), the reverse-edge cap on the host (C++), and a final
-selection over (forward u incoming). Upper layers use the same exact-kNN
-constructor (the JAX package's default `knn` upper mode); layers of at
-most HOST_LAYER_MAX members are built in numpy.
+selection over (forward u incoming). Layers of at most HOST_LAYER_MAX
+members are built in numpy. Upper layers take one of two constructors
+(`build(..., upper_mode=)`): the same exact-kNN one (`"knn"`, the
+default, as in the JAX package), or sequential-semantics insertion
+(`"seq"`, `_build_upper_sequential`: a host seed, then doubling rounds in
+which each row greedy- and beam-descends the hierarchy built so far,
+`upper_insert`, and its targets re-select, `upper_reprune_resident`).
+`HNSWParams.refine_rounds` adds NN-descent rounds to layer 0
+(`_refine_layer0`: `refine_chain` tiles, the reverse-edge cap and the
+merge pass the build shares, `_merge_incoming_pass`).
 
 The batched append (`append_batch`) runs the same phases for the new rows
 only, against ONE device-resident scan base in slot order that a
@@ -36,12 +43,22 @@ What the port leaves out of the JAX module, and why:
 - the XLA `knn_block` fallback scans of the append: on the card every
   scan is the masked kernel;
 - the `SCNT_*` knobs and the `_phase` profiling: the port reads no
-  environment and always takes the fused bf16 scan;
-- the sequential upper-layer mode and NN-descent refinement: not ported
-  yet (see ROADMAP.md); `refine_rounds > 0` raises.
+  environment and always takes the fused bf16 scan. The upper-layer
+  constructor is `build(upper_mode=)`; the seq build's beam width and
+  round cap are the module constants `_UPPER_EFC` and `_UPPER_ROUND_CAP`
+  (the JAX package's defaults); `build(stats=)` takes the phases'
+  seconds instead of the profiling;
+- in the seq build: `_drain_upper` and its packed fixed-arity fetches
+  (each round's selections come back in one fetch, the reverse chains'
+  in one more), the pow-4 pad of the mirror `ucat` and of the reverse
+  chains, and the pow-2 `lc` ladder of the recording arrays (they are
+  sized to the tile's highest level; `lc` stays in the step bound,
+  `(lc + 2) * (efu + 64)`, which is part of the result).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -74,6 +91,10 @@ HOST_LAYER_MAX = 1024
 APPEND_MIN = 2048
 # reverse-reprune targets per device chain
 _RPBLOCK = 8192
+# the seq upper build's beam width (at least 2m) and its staleness bound,
+# the most rows inserted per round
+_UPPER_EFC = 64
+_UPPER_ROUND_CAP = 65536
 # the build's own shuffle stream (same constant as the JAX package, so the
 # same seed gives the same base order in both)
 _SHUFFLE_SALT = 0x5CA1AB1E
@@ -215,6 +236,114 @@ def layer_mask(lev, deleted, l: int):
     """[N] f32 invalid mask for layer l: 1.0 = not scannable (below the
     layer, deleted, or padding: pad rows carry deleted=True)."""
     return ((lev < l) | deleted).float()
+
+
+def refine_chain(base, base_sq, adj, start: int, metric: int, max_deg: int,
+                 fanout: int, heuristic: bool, cpool: int):
+    """One NN-descent refinement tile: rows [start, start + _QBLOCK) of the
+    adjacency `adj` [nm, W] (base rows, -1 padded) take their current
+    neighbors plus each neighbor's top `fanout` neighbors as candidates,
+    scored exactly, deduped, cut to the nearest `cpool` (the selection's
+    C x C cross-distances stay at the build's width) and re-selected.
+    Returns (ids [T, max_deg] i32, distances) for the T rows of the tile."""
+    cur = adj[start : start + _QBLOCK]  # [T, W]
+    T, w = cur.shape
+    rows = torch.arange(start, start + T, device=cur.device)
+    nbr2 = adj[cur.clamp(min=0)][:, :, :fanout]  # [T, W, fanout]
+    nbr2 = torch.where(cur[:, :, None] < 0, -1, nbr2).reshape(T, -1)
+    cand = torch.cat([cur, nbr2], dim=1)
+    cand = torch.where(cand == rows[:, None], -1, cand)
+    d = nbr_dists(base, base_sq, rows, cand, metric)
+    mi, md = merge_dedupe(cand[:, :w], d[:, :w], cand[:, w:], d[:, w:])
+    return select_block(
+        mi[:, :cpool], md[:, :cpool], base, metric=metric, max_deg=max_deg,
+        heuristic=heuristic,
+    )
+
+
+def upper_insert(q, q_rows, q_levels, base, base_sq, ucat, offs, nms,
+                 entry_row: int, entry_level: int, metric: int,
+                 ef_upper: int, m: int, lc: int, max_steps: int):
+    """Sequential-semantics insertion of one tile of upper-layer rows (the
+    reference's insert loop above layer 0, batched): a greedy descent from
+    the entry to each row's own level, then searchLayer(ef_upper) per
+    layer downward against the graph built so far (the resident mirror
+    `ucat` [sum nm_l, m], base coordinates), the diversity selection per
+    layer, and the forward rows written into `ucat`.
+
+    Upper layers are PREFIXES of the level-desc base order, so the row map
+    is arithmetic: row(l, s) = offs[l-1] + s iff s < nms[l-1] (`nms`: the
+    rows inserted so far per layer). `lc` is the tile's level budget, the
+    next power of two at or above its highest level: it only enters the
+    step bound. Returns (sel [L+1, T, m] i64 forward selections, -1 where
+    a row is not at the layer, L the tile's highest level; steps)."""
+    from scintirete_tpu_torch.index.device import (
+        BUILD_EXPAND,
+        _finalize,
+        _fused_greedy,
+        _layer_beams,
+        _make_dist_fn,
+    )
+
+    T = q.shape[0]
+    dev = q.device
+    dist_to = _make_dist_fn(q, base, base_sq, metric)
+    no_deleted = torch.zeros(base.shape[0], dtype=torch.bool, device=dev)
+
+    def row_of(lvl, slots):
+        l0 = lvl.clamp(min=1) - 1
+        if slots.dim() == 2:
+            l0 = l0[:, None]
+        return torch.where((slots >= 0) & (slots < nms[l0]), offs[l0] + slots,
+                           -1)
+
+    # phase 1: greedy descent to each row's own start layer
+    ent = torch.full((T,), entry_row, dtype=torch.int64, device=dev)
+    ent_d = dist_to(ent[:, None])[:, 0]
+    active = q_levels >= 1
+    lvl = torch.where(active, entry_level, 0)
+    stop = torch.where(active, q_levels.clamp(max=entry_level), 0)
+    cur, cur_d, g_steps = _fused_greedy(
+        dist_to, row_of, ucat, no_deleted, ent, ent_d, lvl, stop, max_steps,
+    )
+
+    # phase 2: per-layer beams downward, recording each layer's candidates
+    top = int(q_levels.max())
+    out_s, out_d, _, _, b_steps = _layer_beams(
+        dist_to, no_deleted, torch.where(active, cur, -1),
+        torch.where(active, cur_d, _INF), stop, row_of, ucat, ef_upper, m,
+        top, max_steps, min(BUILD_EXPAND, ef_upper),
+    )
+    out_d = _finalize(out_d, metric)
+
+    # phase 3: per-layer selection (diversity heuristic, the reference's
+    # rule on upper layers); forward rows into the mirror
+    sel = torch.full((top + 1, T, m), -1, dtype=torch.int64, device=dev)
+    for l in range(1, top + 1):
+        si, _ = select_block(out_s[l], out_d[l], base, metric=metric,
+                             max_deg=m, heuristic=True)
+        at = q_levels >= l
+        sel[l] = torch.where(at[:, None], si, -1)
+        ucat[offs[l - 1] + q_rows[at]] = sel[l][at]
+    return sel, g_steps + b_steps
+
+
+def upper_reprune_resident(base, base_sq, ucat, off_l: int, t_rows, inc_i,
+                           metric: int, m: int):
+    """Reverse re-selection of upper-layer targets against the resident
+    mirror: each target's current row of `ucat` (at off_l + t_rows) merged
+    with its incoming ids [T, W], every distance recomputed (they are
+    symmetric), the diversity selection applied and the rows written back.
+    Returns the selected ids [T, m] i32."""
+    rows = off_l + t_rows
+    cur = ucat[rows]  # [T, m]
+    cand = torch.cat([cur, inc_i.to(cur.dtype)], dim=1)
+    d = nbr_dists(base, base_sq, t_rows, cand, metric)
+    mi, md = merge_dedupe(cand[:, :m], d[:, :m], cand[:, m:], d[:, m:])
+    si, _ = select_block(mi, md, base, metric=metric, max_deg=m,
+                         heuristic=True)
+    ucat[rows] = si.to(ucat.dtype)
+    return si
 
 
 # ---------------------------------------------------------------------------
@@ -438,38 +567,298 @@ def _layer_adj(ctx, nm, max_deg, heuristic):
     inc_i, inc_d = _incoming_host(fwd_i, fwd_d, max_deg)
 
     # ---- pass 2: merge device-resident forward with incoming -> final
+    out, _ = _merge_incoming_pass(ctx, dev_fwd, inc_i, inc_d, nm, max_deg,
+                                  heuristic)
+    return out
+
+
+def _to_slots(adj: np.ndarray, members: np.ndarray) -> np.ndarray:
+    """A layer's adjacency from base rows to slots (-1 stays -1)."""
+    return np.where(adj >= 0, members[np.maximum(adj, 0)], -1).astype(np.int32)
+
+
+def _merge_incoming_pass(ctx, dev_tiles, inc_i, inc_d, nm, max_deg,
+                         heuristic):
+    """Merge per-tile device-resident selections [(qs, qe, ids, dists)]
+    with the host's incoming edges and re-select: the second half of the
+    bulk build and of every refinement round. Returns (adjacency,
+    distances) [nm, max_deg] on the host."""
+    dev = ctx["device"]
     out = np.full((nm, max_deg), -1, np.int32)
     out_d = np.full((nm, max_deg), np.inf, np.float32)
     final = []
-    for qs, qe, sel_i, sel_d in dev_fwd:
+    for qs, qe, sel_i, sel_d in dev_tiles:
         mi, md = merge_dedupe(
             sel_i, sel_d,
             torch.from_numpy(inc_i[qs:qe]).to(dev),
             torch.from_numpy(inc_d[qs:qe]).to(dev),
         )
         fi, fd = select_block(
-            mi, md, ctx["base"], metric=metric, max_deg=max_deg,
+            mi, md, ctx["base"], metric=ctx["metric"], max_deg=max_deg,
             heuristic=heuristic,
         )
         final.append((qs, qe, fi, fd))
     _to_host(final, out, out_d)
-    return out
+    return out, out_d
+
+
+# neighbors' top-N taken as refinement candidates: the raw pool is
+# max_deg * (1 + 4) wide, and the gather traffic scales with it
+_REFINE_FANOUT = 4
+
+
+def _refine_layer0(ctx, adj, nm, max_deg, heuristic, rounds):
+    """NN-descent refinement of a built layer-0 adjacency [nm, max_deg]
+    (base rows). The doubling-round constructor scans each row only
+    against the prefix of its own round, so early rows' forward kNN is
+    incomplete; each round proposes every row's neighbors-of-neighbors,
+    scores them exactly, re-selects (`refine_chain`, one tile of _QBLOCK
+    rows at a time), re-applies the reverse-edge cap on the host and the
+    merge pass. No reference equivalent; HNSWParams.refine_rounds sets
+    the rounds (default 0)."""
+    dev = ctx["device"]
+    for _ in range(rounds):
+        adj_t = torch.from_numpy(adj.astype(np.int64)).to(dev)
+        tiles = []
+        for qs in range(0, nm, _QBLOCK):
+            fi, fd = refine_chain(
+                ctx["base"], ctx["base_sq"], adj_t, qs, metric=ctx["metric"],
+                max_deg=max_deg, fanout=_REFINE_FANOUT, heuristic=heuristic,
+                cpool=KNN_CANDIDATES,
+            )
+            tiles.append((qs, min(qs + _QBLOCK, nm), fi, fd))
+        fwd_i = np.full((nm, max_deg), -1, np.int32)
+        fwd_d = np.full((nm, max_deg), np.inf, np.float32)
+        _to_host(tiles, fwd_i, fwd_d)
+        inc_i, inc_d = _incoming_host(fwd_i, fwd_d, max_deg)
+        adj, _ = _merge_incoming_pass(ctx, tiles, inc_i, inc_d, nm, max_deg,
+                                      heuristic)
+    return adj
+
+
+# ---------------------------------------------------------------------------
+# sequential-semantics upper-layer construction (upper_mode="seq")
+#
+# Per-layer exact-kNN candidates are single-scale: the diversity heuristic
+# then only sees intra-cluster edges and the upper layers lose the
+# multi-scale "highway" edges that sequential insertion creates, which
+# misroutes a pure top-down walk at >= 1M. This constructor builds the
+# upper hierarchy as the reference's insert loop does, each node's
+# candidates coming from a SEARCH of the graph built so far, batched into
+# doubling rounds on the device (the round granularity is the only
+# staleness).
+# ---------------------------------------------------------------------------
+
+_UPPER_SEED = 256  # host-sequential bootstrap prefix
+
+
+def _seed_upper_host(rows, lvls, S, adj, metric, m):
+    """Sequential host insertion of base rows [0, S) into the upper layers:
+    exact full-prefix candidates, reference-semantics selection, immediate
+    reverse re-selection per touched neighbor. Levels are desc-sorted, so
+    every earlier row is a member of every layer the current row joins.
+    One S x S distance matrix up front; the selections are table lookups."""
+    dmat = distance_np(rows[:S], rows[:S], metric).astype(np.float32)
+
+    def select(cands, ds):
+        """Diversity heuristic + keep-pruned fill over dmat lookups (the
+        rule of _select_host)."""
+        selected: list[int] = []
+        pruned: list[int] = []
+        for c, dq in zip(cands, ds):
+            if len(selected) == m:
+                break
+            if selected and (dmat[c, selected] <= dq).any():
+                pruned.append(int(c))
+                continue
+            selected.append(int(c))
+        for c in pruned:
+            if len(selected) == m:
+                break
+            selected.append(c)
+        return selected
+
+    for i in range(1, S):
+        li = int(lvls[i])
+        if li < 1:
+            break  # desc-sorted: no upper rows follow
+        order = np.argsort(dmat[i, :i], kind="stable")
+        # the candidates (the full prefix) are the same at every layer i
+        # joins: one forward selection serves all of them
+        sel = select(order.tolist(), dmat[i, order])
+        for l in range(1, li + 1):
+            adj[l][i, : len(sel)] = sel
+            adj[l][i, len(sel):] = -1
+            for v in sel:
+                cur = adj[l][v]
+                cand = np.unique(
+                    np.concatenate([cur[cur >= 0], [i]])
+                ).astype(np.int32)
+                o = np.argsort(dmat[v, cand], kind="stable")
+                sel2 = select(cand[o].tolist(), dmat[v, cand][o])
+                adj[l][v, : len(sel2)] = sel2
+                adj[l][v, len(sel2):] = -1
+
+
+def _compact_incoming_ids(src: np.ndarray, dst: np.ndarray, cap: int):
+    """Group reverse edges by target and keep the first `cap` per target in
+    appearance order (the re-selection recomputes every distance). The cap
+    is 2x the re-selection degree, so the cut only loses candidates at
+    targets with more than 2m incoming edges in one round. Returns
+    (targets [T] ascending, inc_i [T, cap] i32)."""
+    uniq, inv = np.unique(dst, return_inverse=True)
+    order = np.argsort(inv, kind="stable")
+    inv_o, src_o = inv[order], src[order]
+    E = len(dst)
+    iota = np.arange(E)
+    new_grp = np.empty(E, bool)
+    new_grp[0] = True
+    new_grp[1:] = inv_o[1:] != inv_o[:-1]
+    grp_start = np.maximum.accumulate(np.where(new_grp, iota, 0))
+    pos = iota - grp_start
+    keep = pos < cap
+    inc_i = np.full((len(uniq), cap), -1, np.int32)
+    inc_i[inv_o[keep], pos[keep]] = src_o[keep]
+    return uniq.astype(np.int64), inc_i
+
+
+def _build_upper_sequential(ctx, lvls, m, seed_rows, stats=None):
+    """Adjacency of every upper layer in base coordinates: {l: [nm_l, m]}.
+
+    The host-sequential seed (`seed_rows`: the scan-form f32 rows of the
+    first _UPPER_SEED base rows), then doubling rounds P -> min(n1, 2P,
+    P + _UPPER_ROUND_CAP): each round's rows are inserted one tile at a time by
+    `upper_insert` against the device mirror `ucat`; the round's forward
+    selections come to the host in one fetch, and the reverse edges
+    re-select through `upper_reprune_resident`, whose results come back in
+    one more. The host tables stay the source of truth; `ucat` feeds the
+    next round's beams. `stats` (a dict) gets the rounds, tiles and serial
+    loop steps."""
+    dev, metric = ctx["device"], ctx["metric"]
+    L = int(lvls.max(initial=0))
+    n1 = int(np.count_nonzero(lvls >= 1))
+    nm = np.asarray([np.count_nonzero(lvls >= l) for l in range(1, L + 1)],
+                    np.int64)
+    adj = {l: np.full((int(nm[l - 1]), m), -1, np.int32)
+           for l in range(1, L + 1)}
+    rounds = tiles = steps = 0
+    if n1 > 1:
+        S = min(n1, _UPPER_SEED)
+        _seed_upper_host(seed_rows, lvls, S, adj, metric, m)
+    if n1 > _UPPER_SEED:
+        offs = np.concatenate([[0], np.cumsum(nm)[:-1]]).astype(np.int64)
+        ucat = torch.full((int(nm.sum()), m), -1, dtype=torch.int64,
+                          device=dev)
+        for l in range(1, L + 1):
+            k = min(S, int(nm[l - 1]))
+            ucat[int(offs[l - 1]) : int(offs[l - 1]) + k] = torch.from_numpy(
+                adj[l][:k].astype(np.int64)).to(dev)
+        offs_t = torch.from_numpy(offs).to(dev)
+        efu = max(_UPPER_EFC, 2 * m)
+        # level budgets: powers of two up to 16 slots (the JAX package's
+        # layer-slot count), which enter only the step bound
+        lslots = 16 if L <= 16 else 1 << (L - 1).bit_length()
+        # tile width: free (rows at or past P are invisible to a round's
+        # beams); wider above the test scale
+        ub = 8192 if ctx["n"] >= 65536 else _QBLOCK
+        entry_level = int(lvls[0])
+        P = S
+        while P < n1:
+            P2 = min(n1, P * 2, P + _UPPER_ROUND_CAP)
+            nms = torch.from_numpy(np.minimum(P, nm)).to(dev)
+            sels = []
+            for qs in range(P, P2, ub):
+                qe = min(qs + ub, P2)
+                lv = lvls[qs:qe]
+                lc = 1
+                while lc < max(int(lv.max()), 1):
+                    lc *= 2
+                lc = min(lc, lslots)
+                sel, st = upper_insert(
+                    ctx["base"][qs:qe],
+                    torch.arange(qs, qe, device=dev),
+                    torch.from_numpy(lv.astype(np.int64)).to(dev),
+                    ctx["base"], ctx["base_sq"], ucat, offs_t, nms, 0,
+                    entry_level, metric=metric, ef_upper=efu, m=m, lc=lc,
+                    max_steps=(lc + 2) * (efu + 64),
+                )
+                sels.append((qs, qe, lc, sel))
+                tiles += 1
+                steps += st
+            # the round's selections in one fetch, then the host writes and
+            # the reverse edges per layer. Edges are taken tile by tile in
+            # ascending lc, the order the JAX package's grouped fetch gives
+            # them (the per-target cap keeps the first 2m)
+            top = max(t[3].shape[0] for t in sels)
+            fetched = torch.cat([
+                torch.nn.functional.pad(t[3], (0, 0, 0, 0, 0,
+                                               top - t[3].shape[0]), value=-1)
+                for t in sels
+            ], dim=1).cpu().numpy()
+            rev: dict[int, tuple[list, list]] = {}
+            for qs, qe, lc, _ in sorted(sels, key=lambda t: t[2]):
+                for l in range(1, min(lc, L) + 1):
+                    rows = np.arange(qs, qe)[lvls[qs:qe] >= l]
+                    if rows.size == 0:
+                        continue
+                    sl = fetched[l, rows - P].astype(np.int32)
+                    adj[l][rows] = sl
+                    dsts = sl.reshape(-1).astype(np.int64)
+                    keep = dsts >= 0
+                    if keep.any():
+                        e = rev.setdefault(l, ([], []))
+                        e[0].append(np.repeat(rows, m)[keep])
+                        e[1].append(dsts[keep])
+            chains = []
+            for l, (ss, dd) in sorted(rev.items()):
+                t_rows, inc_i = _compact_incoming_ids(
+                    np.concatenate(ss), np.concatenate(dd), 2 * m
+                )
+                for ts in range(0, len(t_rows), _RPBLOCK):
+                    te = min(ts + _RPBLOCK, len(t_rows))
+                    si = upper_reprune_resident(
+                        ctx["base"], ctx["base_sq"], ucat, int(offs[l - 1]),
+                        torch.from_numpy(t_rows[ts:te]).to(dev),
+                        torch.from_numpy(inc_i[ts:te]).to(dev),
+                        metric=metric, m=m,
+                    )
+                    chains.append((l, t_rows[ts:te], si))
+            if chains:
+                si_h = torch.cat([c[2] for c in chains]).cpu().numpy()
+                off = 0
+                for l, t, _ in chains:
+                    adj[l][t] = si_h[off : off + len(t)]
+                    off += len(t)
+            rounds += 1
+            P = P2
+    if stats is not None:
+        stats.update(upper_rounds=rounds, upper_tiles=tiles,
+                     upper_steps=steps)
+    return adj
 
 
 def build(store: GraphStore, vectors: np.ndarray, device,
-          scan_cache: dict | None = None) -> list[int]:
+          scan_cache: dict | None = None, upper_mode: str = "knn",
+          stats: dict | None = None) -> list[int]:
     """From-scratch bulk build on `device`. The store must be empty.
+
+    Upper layers: `upper_mode="knn"` (the default) builds each with the
+    exact-kNN constructor of layer 0; "seq" inserts them with
+    sequential semantics (`_build_upper_sequential`: beams of
+    max(_UPPER_EFC, 2m), rounds of at most _UPPER_ROUND_CAP rows). Layer 0
+    gets `store.params.refine_rounds` NN-descent rounds after its build.
 
     `scan_cache` (caller-owned, see `append_batch`) is re-seeded with the
     build's scan base gathered into slot order, so the next append scans
-    it without re-uploading the corpus."""
-    if int(getattr(store.params, "refine_rounds", 0) or 0) > 0:
-        raise NotImplementedError(
-            "refine_rounds > 0 (NN-descent refinement) is not ported yet: "
-            "ROADMAP.md Queue 1, knn_build.append_batch item"
-        )
+    it without re-uploading the corpus. `stats` (a dict) gets the phases'
+    seconds (`upper_s`, `layer0_s`, `refine_s`), the seq build's
+    counts, and, when a refinement ran, layer 0's adjacency before it
+    (`unrefined0` [n, m0], rows and ids in slot space)."""
+    if upper_mode not in ("knn", "seq"):
+        raise ValueError(f"upper_mode must be 'knn' or 'seq', not {upper_mode!r}")
     if store.count != 0:
         raise ValueError("knn_build.build requires an empty store")
+    stats = {} if stats is None else stats
     vectors = np.asarray(vectors, np.float32)
     n = len(vectors)
     levels = store.draw_levels(n)
@@ -479,18 +868,38 @@ def build(store: GraphStore, vectors: np.ndarray, device,
     heuristic0 = bool(store.params.neighbor_heuristic)
     shuffle_rng = np.random.default_rng(store.seed ^ _SHUFFLE_SALT)
     max_level = int(levels.max(initial=0))
+    refine_rounds = int(getattr(store.params, "refine_rounds", 0) or 0)
 
     # ONE base order for every layer: level desc, random within level, so
     # layer l's members are exactly base rows [0, nm_l)
     order = np.lexsort((shuffle_rng.random(n), -levels.astype(np.int64)))
     ctx = _make_build_ctx(vectors[order], metric, device)
 
+    # upper layers are routing structures only; "seq" builds them by
+    # searching the hierarchy built so far (the reference's insert loop)
+    upper_adj: dict[int, np.ndarray] = {}
+    stats.update(upper_s=0.0, layer0_s=0.0, refine_s=0.0)
+    stats.pop("unrefined0", None)
+    if max_level >= 1 and upper_mode == "seq":
+        t0 = time.perf_counter()
+        base_lvls = levels[order].astype(np.int64)
+        seed = _scan_form(
+            vectors[order[: min(_UPPER_SEED, n)]], metric
+        )
+        upper_adj = _build_upper_sequential(
+            ctx, base_lvls, store.m, seed, stats,
+        )
+        stats["upper_s"] = time.perf_counter() - t0
+
     for l in range(max_level + 1):
+        t0 = time.perf_counter()
         nm = int(np.count_nonzero(levels >= l))
         max_deg = store.m0 if l == 0 else store.m
         heuristic = heuristic0 if l == 0 else True
         members = order[:nm]  # member slots of this layer, base order
-        if nm <= 1:
+        if l >= 1 and l in upper_adj:
+            adj = upper_adj[l]
+        elif nm <= 1:
             adj = np.full((nm, max_deg), -1, np.int32)
         elif nm <= HOST_LAYER_MAX:
             n_cand = KNN_CANDIDATES if l == 0 else min(KNN_CANDIDATES, 4 * store.m)
@@ -499,15 +908,24 @@ def build(store: GraphStore, vectors: np.ndarray, device,
             )
         else:
             adj = _layer_adj(ctx, nm, max_deg, heuristic)
-        mapped = np.where(adj >= 0, members[np.maximum(adj, 0)], -1).astype(
-            np.int32
-        )
+            if l == 0 and refine_rounds > 0:
+                unrefined = np.empty((n, max_deg), np.int32)
+                unrefined[members] = _to_slots(adj, members)
+                stats["unrefined0"] = unrefined
+                t1 = time.perf_counter()
+                adj = _refine_layer0(ctx, adj, nm, max_deg, heuristic,
+                                     refine_rounds)
+                stats["refine_s"] = time.perf_counter() - t1
+        mapped = _to_slots(adj, members)
         if l == 0:
             store.neighbors0[members] = mapped
+            stats["layer0_s"] = time.perf_counter() - t0 - stats["refine_s"]
         else:
             ls = store.layers[l - 1]
             rows = ls.row_of[members]
             ls.nbrs[rows] = mapped[:, : store.m]
+            if upper_mode == "knn":
+                stats["upper_s"] += time.perf_counter() - t0
 
     store.max_layer = max_level
     store.entry_slot = int(order[0]) if n else -1

@@ -28,9 +28,10 @@ _COSINE = int(DistanceMetric.COSINE)
 _IP = int(DistanceMetric.INNER_PRODUCT)
 
 
-def pivot_entry_scan_plain(queries, pivot_vecs, pivot_sq, pivot_deleted,
-                           metric: int):
-    """Plain torch version: the [B, R] distance block and its argmin."""
+def pivot_distance_block(queries, pivot_vecs, pivot_sq, pivot_deleted,
+                         metric: int):
+    """The [B, R] comparison-form distances the scan minimizes (deleted
+    pivots +inf), as one f32 matrix product."""
     q32 = queries.float()
     dots = q32 @ pivot_vecs.float().T
     if metric == _IP:
@@ -40,7 +41,14 @@ def pivot_entry_scan_plain(queries, pivot_vecs, pivot_sq, pivot_deleted,
         d = (qsq + pivot_sq[None, :]) - 2.0 * dots
     else:
         d = 1.0 - dots
-    d = torch.where(pivot_deleted[None, :] > 0.5, torch.inf, d)
+    return torch.where(pivot_deleted[None, :] > 0.5, torch.inf, d)
+
+
+def pivot_entry_scan_plain(queries, pivot_vecs, pivot_sq, pivot_deleted,
+                           metric: int):
+    """Plain torch version: the [B, R] distance block and its argmin."""
+    d = pivot_distance_block(queries, pivot_vecs, pivot_sq, pivot_deleted,
+                             metric)
     # torch.argmin returns the first minimal index: the lowest-index rule
     best_i = torch.argmin(d, dim=1)
     best_d = d.gather(1, best_i[:, None])[:, 0]

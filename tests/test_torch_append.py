@@ -14,11 +14,17 @@ held to a per-layer overlap and to recall.
 
 import numpy as np
 import pytest
+import torch
 
 from scintirete_tpu.index import HNSWIndex as JaxHNSWIndex
 from scintirete_tpu.types import DistanceMetric, HNSWParams, SearchParams
 from scintirete_tpu_torch.index.hnsw import HNSWIndex
 from scintirete_tpu_torch.ops.distance import distance_np
+
+# one intra-op thread: the suite runs its files in parallel worker
+# processes on the CPU, and every worker imports every test module at
+# collection, so this holds for each of them
+torch.set_num_threads(1)
 
 N1, N2, D, NQ, K = 2500, 2200, 16, 200, 10
 N = N1 + N2

@@ -142,26 +142,31 @@ def test_recall_and_state_crosses_to_jax(built, data):
 
 
 def test_unported_paths_raise_before_mutation(built, data):
-    """What the port still leaves out raises NotImplementedError naming
-    ROADMAP.md, before it changes anything: the descent search entry mode,
-    refine_rounds > 0 and sharding. The flat index and AOF replay are
-    ported: a flat collection is created, a logged command applied."""
+    """What the port still leaves out, sharding, raises NotImplementedError
+    naming ROADMAP.md before it changes anything. The paths this used to
+    list run now, on the same graph and corpus: the descent search (top-down
+    and mid-layer entry) and a refine_rounds > 0 build; the flat index and
+    AOF replay are ported too."""
     base, _ = data
     port, _ = built
     before = port.export_graph_state()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port._get_device().search(port.store, base[:4], K, 12,
-                                  entry_mode="descent")
+    dev = port._get_device()
+    for mid in (False, True):
+        slots, dists = dev.search(port.store, base[:4], K, 12,
+                                  entry_mode="descent", descent_mid=mid)
+        assert slots.shape == (4, K) and list(slots[:, 0]) == [0, 1, 2, 3]
     after = port.export_graph_state()
     assert after["count"] == before["count"]
     np.testing.assert_array_equal(after["neighbors0"], before["neighbors0"])
     assert port.size() == N
 
-    refine = HNSWIndex(D, HNSWParams(seed=1, refine_rounds=1),
+    refine = HNSWIndex(D, HNSWParams(m=8, ef_construction=32, seed=1,
+                                     refine_rounds=1),
                        DistanceMetric.COSINE, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        refine.bulk_insert(list(range(1, N + 1)), base)
-    assert refine.store.count == 0 and refine.size() == 0
+    refine.bulk_insert(list(range(1, N + 1)), base)
+    assert refine.size() == N and refine.build_stats["refine_s"] > 0
+    hits = refine.search_batch(base[:4], SearchParams(top_k=1))
+    assert [h[0][0] for h in hits] == [1, 2, 3, 4]
 
     engine = Engine(device="cpu")
     db = engine.create_database("db")

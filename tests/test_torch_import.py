@@ -25,6 +25,24 @@ idx.bulk_insert(list(range(2101, 4301)), base[2100:])  # the batched append
 hits = idx.search(base[7], SearchParams(top_k=3))
 assert hits[0][0] == 8, hits
 assert idx.search(base[4000], SearchParams(top_k=1))[0][0] == 4001
+# the descent entries: mid-layer greedy and beam, and the pure walk
+import scintirete_tpu_torch.index.device as device_mod
+idx.entry_mode, device_mod.MID_CAP = "descent", 64
+for idx.descent_mid, idx.ef_upper in ((True, 1), (True, 4), (False, 1)):
+    assert idx.search(base[7], SearchParams(top_k=3))[0][0] == 8
+assert idx._get_device().graph.mid_level >= 1
+# the seq upper-layer build and a refined layer 0
+seq = HNSWIndex(8, params, DistanceMetric.COSINE, device="cpu",
+                upper_mode="seq")
+seq.bulk_insert(list(range(1, 2101)), base[:2100])
+assert seq.build_stats["upper_rounds"] >= 1
+assert seq.search(base[7], SearchParams(top_k=3))[0][0] == 8
+refined = HNSWIndex(8, HNSWParams(m=4, ef_construction=16, seed=1,
+                                  refine_rounds=1),
+                    DistanceMetric.COSINE, device="cpu")
+refined.bulk_insert(list(range(1, 2101)), base[:2100])
+assert refined.build_stats["refine_s"] > 0
+assert refined.search(base[7], SearchParams(top_k=3))[0][0] == 8
 # the chunked device insertion, through the engine
 col = Engine(device="cpu").create_database("d").create_collection(
     CollectionConfig(name="c", hnsw=params)
@@ -124,8 +142,9 @@ print("ok")
 
 
 def test_port_builds_and_searches_without_jax():
-    """A build, an append, a chunked insert, a flat insert, delete and
-    search on both flat routes, a snapshot, a recovery, an AOF rewrite and
+    """A build, an append, the descent and mid-layer searches, a seq
+    upper-layer build, a refined build, a chunked insert, a flat insert,
+    delete and search on both flat routes, a snapshot, a recovery, an AOF rewrite and
     the server's service answering one request over gRPC and one over HTTP
     leave neither jax, any module of the JAX package nor flatbuffers in
     sys.modules."""
