@@ -161,13 +161,39 @@ Phases, in order; any failure exits non-zero and prints no result line:
     pivot recall@10 >= 0.95). Each index is freed before the next is
     built, and knn_lane_topc and pivot_entry_scan must have been launched
     by E2 and E3;
-11. prints the kernels' JSON line (seven entries; launches of the main
-    path, phase E, the durability phases and phase D), the card's line,
-    and last {"ok": true, "device": {...}}.
+11. S, sharding (one JSON line for the phase), after phase E frees its
+    graphs: S1 builds the 1M corpus as ShardedHNSWIndex(devices=[cuda:0,
+    cuda:0]) in one bulk_insert (two kNN builds of 500,000; seconds per
+    shard and in all, each shard's build_stats); S2 searches the 4,096
+    queries in batches of 1,024 (QPS, recall@10 >= 0.95 and no more than
+    0.005 below the main path's unsharded recall in this run) and holds
+    1,024 queries in waves of 32 against one batch (0 ids and 0 distance
+    bits may differ); S3 deletes the main path's 1% (none may come back,
+    recall@10 against the survivors) and appends 4 x 4,096 rows round
+    robin, 2,048 a shard a batch, so each takes the batched append (seconds
+    per batch; every appended row must find itself first); S4 exports the
+    graph state and imports it onto the same two devices: the 4,096
+    answers must be equal in ids and distance bits; S5 cuts the corpus to
+    65,536 rows: an Engine with TPUConfig(shard_devices=2) on this one
+    card serves an HNSW collection unsharded, as the JAX package does on
+    one chip (recall@10 >= 0.95), and Collection.from_state of a two-shard
+    state re-shards it onto the card's one device (recall@10 >= 0.95).
+    pivot_entry_scan, knn_lane_topc and knn_lane_topc_masked must each be
+    launched by the phase; peak device memory is printed;
+12. prints the kernels' JSON line (seven entries; launches of the main
+    path, phase E, phase S, the durability phases and phase D), the card's
+    line, and last {"ok": true, "device": {...}}.
 
-On one H100 the whole run takes about 7 minutes of the 20 it may take,
-the durability phases about a minute of it, phase D about two and phase
-E about one and a half; it prints its total.
+On one H100 the whole run takes about 7-10 minutes of the 20 it may take,
+the durability phases about a minute of it, phase D about two, phase E
+about one and a half and phase S about two or three; it prints its
+total. Phase D's restart splits `server_main`'s spawn-to-first-answer
+time from its log: up to main(), main's imports, the recovery, starting
+the listeners, up to the first answer; the warm-up and the kernel
+libraries' load run after it, in the background. A second interpreter,
+which only imports `server_main` under `python -X importtime`, then
+splits the imports before main() into torch's and the package's, apart
+from the timed restart.
 
 This script imports nothing of JAX and nothing of the JAX package, and
 reads no environment variable. The data is made from --seed.
@@ -176,6 +202,7 @@ reads no environment variable. The data is made from --seed.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -1008,7 +1035,8 @@ def run_main_path(dev, n, n_queries, seed):
     if rec_del < RECALL_GATE:
         fail(f"recall@10 after delete {rec_del:.4f} < {RECALL_GATE}")
     flat_case = (queries, true_i, del_ids, true_after)
-    return launches, engine, col, base, valid, centers, rng, flat_case, build_s
+    return (launches, engine, col, base, valid, centers, rng, flat_case,
+            build_s, rec)
 
 
 def replay_build_scans(dev, base, build_s, main_launches):
@@ -1223,6 +1251,11 @@ E3_GATE = 0.95
 E_WAVE, E_WAVE_ROWS = 32, 1024  # waves of 32 against one batch of 1,024
 E3_ROWS = N_BASE  # the refined build's corpus (cut if phase E runs long)
 E3_SAMPLE = 4096  # rows whose layer-0 kNN@10 overlap is taken
+# phase S: two shards of the main path's corpus on the one card
+S_SHARDS = 2
+S_RECALL_SLACK = 0.005  # below the main path's unsharded recall@10
+S_ENGINE_ROWS = 65_536  # S5's cut of the corpus
+S_KERNELS = ("pivot_entry_scan", "knn_lane_topc", "knn_lane_topc_masked")
 
 
 def e_mode(idx, name):
@@ -1286,13 +1319,14 @@ def e_search(tag, idx, queries, truth, gone, names, gates, waves=()):
     return out
 
 
-def check_mid_scan(tag, idx, queries):
-    """pivot_entry_scan against its plain version at the mid scan's own
-    shape: the graph's mid table (members pre-normalized, their squared
-    norms and tombstones) against `queries` in the sub-batches the mid
-    entry scans them in, at the pivot check's tolerance. Its launches are
-    taken off the wrapper's count again. Returns the largest distance
-    difference."""
+def check_entry_scan(tag, idx, queries, table="mid", waves=()):
+    """pivot_entry_scan against its plain version at a search's own shape:
+    the HNSWIndex's mid table (table "mid") or pivot table ("pivot") —
+    rows pre-normalized, their squared norms and tombstones — against
+    `queries` in the sub-batches a search scans them in, and then the
+    first E_WAVE_ROWS queries in sub-batches of each size in `waves`, at
+    the pivot check's tolerance. Its launches are taken off the wrapper's
+    count again. Returns the largest distance difference."""
     import torch
 
     from scintirete_tpu_torch.ops.pivot_scan import (
@@ -1303,28 +1337,31 @@ def check_mid_scan(tag, idx, queries):
     dev_idx = idx._get_device()
     a = dev_idx.graph.arrays
     metric = int(idx.store.metric)
-    mid_del = a["deleted"][a["mid_slots"]].float()
+    rows = a["mid_slots"] if table == "mid" else a["pivots"]
+    vecs, sq = a[f"{table}_vecs"], a[f"{table}_sq"]
+    dele = a["deleted"][rows].float()
     counted = pivot_entry_scan.launches
     worst, least = 0.0, 1.0
-    for s in range(0, len(queries), dev_idx.max_batch):
-        q = torch.from_numpy(queries[s : s + dev_idx.max_batch]).to(
-            dev_idx.device)
-        if metric == 2:
-            q = q / q.norm(dim=1, keepdim=True).clamp_min(1e-30)
-        args = (q, a["mid_vecs"], a["mid_sq"], mid_del, metric)
-        d_k, i_k = pivot_entry_scan(*args)
-        d_p, i_p = pivot_entry_scan_plain(*args)
-        torch.cuda.synchronize()
-        err, share = compare(
-            f"{tag} mid scan B={q.shape[0]} R={mid_del.shape[0]}", d_k, i_k,
-            d_p, i_p, atol=1e-4, rtol=1e-5,
-        )
-        worst, least = max(worst, err), min(least, share)
+    for size, qs in ((dev_idx.max_batch, queries),
+                     *((w, queries[:E_WAVE_ROWS]) for w in waves)):
+        for s in range(0, len(qs), size):
+            q = torch.from_numpy(qs[s : s + size]).to(dev_idx.device)
+            if metric == 2:
+                q = q / q.norm(dim=1, keepdim=True).clamp_min(1e-30)
+            args = (q, vecs, sq, dele, metric)
+            d_k, i_k = pivot_entry_scan(*args)
+            d_p, i_p = pivot_entry_scan_plain(*args)
+            torch.cuda.synchronize()
+            err, share = compare(
+                f"{tag} {table} scan B={q.shape[0]} R={dele.shape[0]}", d_k,
+                i_k, d_p, i_p, atol=1e-4, rtol=1e-5,
+            )
+            worst, least = max(worst, err), min(least, share)
     pivot_entry_scan.launches = counted
-    log(f"{tag} mid scan: pivot_entry_scan B={dev_idx.max_batch} "
-        f"R={mid_del.shape[0]} ({int(mid_del.sum())} deleted) against plain "
-        f"on {len(queries)} queries: max|dd|={worst:.3g} ids equal "
-        f"{least:.6f}")
+    sizes = "/".join(str(b) for b in (dev_idx.max_batch, *waves))
+    log(f"{tag} {table} scan: pivot_entry_scan B={sizes} R={dele.shape[0]} "
+        f"({int(dele.sum())} deleted) against plain on {len(queries)} "
+        f"queries: max|dd|={worst:.3g} ids equal {least:.6f}")
     return worst
 
 
@@ -1342,7 +1379,7 @@ def run_descent_modes(col, queries, truth, del_ids):
     g = idx._get_device().graph
     out["mid_level"] = g.mid_level
     out["mid_members"] = int(g.arrays["mid_slots"].shape[0])
-    out["mid_scan_max_abs_err"] = check_mid_scan("E1", idx, queries)
+    out["mid_scan_max_abs_err"] = check_entry_scan("E1", idx, queries)
     out["phase_s"] = time.perf_counter() - t0
     log(f"E1: mid layer {g.mid_level} ({out['mid_members']} members), "
         f"phase {out['phase_s']:.1f} s")
@@ -1400,7 +1437,7 @@ def run_seq_and_refine(dev, base, queries, truth, seed):
     e2.update(e_search("E2 (seq uppers)", idx, queries, truth, set(),
                        ["pure greedy", "pure beam 2", "pure beam 4",
                         "mid greedy"], E2_GATES))
-    e2["mid_scan_max_abs_err"] = check_mid_scan("E2", idx, queries)
+    e2["mid_scan_max_abs_err"] = check_entry_scan("E2", idx, queries)
     out["E2"] = e2
     del idx, st
     gc.collect()
@@ -1436,6 +1473,342 @@ def run_seq_and_refine(dev, base, queries, truth, seed):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def answers_arrays(results, k=K):
+    """search_batch's [(id, dist)] lists -> (ids u64 [B, k], dists f32
+    [B, k]); 0 / inf where a query got fewer than k hits."""
+    ids = np.zeros((len(results), k), np.uint64)
+    dists = np.full((len(results), k), np.inf, np.float32)
+    for b, row in enumerate(results):
+        for j, (vid, dist) in enumerate(row):
+            ids[b, j], dists[b, j] = vid, dist
+    return ids, dists
+
+
+def sharded_search(idx, queries, k=K):
+    """search_batch over `queries` in batches of BATCH (ef 12): (ids,
+    dists) arrays and the seconds taken."""
+    import torch
+
+    from scintirete_tpu_torch import SearchParams
+
+    sp = SearchParams(top_k=k, ef_search=12)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = []
+    for s in range(0, len(queries), BATCH):
+        res.extend(idx.search_batch(queries[s : s + BATCH], sp))
+    secs = time.perf_counter() - t0
+    return (*answers_arrays(res, k), secs)
+
+
+@contextlib.contextmanager
+def widest_scans():
+    """While open, the two graph-build lane scans keep, for each scan base
+    they run over, copies of the inputs and outputs of their widest launch
+    (query rows x tiles). Yields {(name, base id): (size, base, inputs,
+    outputs)}; each entry holds its base, so no other base can take its
+    address while it is kept. A wrapper stands in for the module
+    attribute that the kernel's own body counts its launches on, so it
+    carries the count while it is in place and hands it back."""
+    import torch
+
+    from scintirete_tpu_torch.ops import lane_scan as mod
+
+    kept, wrapped = {}, {}
+    for attr, name in (("lane_scan", "knn_lane_topc"),
+                       ("lane_scan_masked", "knn_lane_topc_masked")):
+        def run(*args, _fn=getattr(mod, attr), _name=name):
+            out = _fn(*args)
+            key = (_name, args[2].data_ptr())
+            size = args[0].shape[0] * args[-1]
+            if size > kept.get(key, (0,))[0]:
+                kept[key] = (size, args[2], tuple(
+                    a.clone() if torch.is_tensor(a) else a for a in args
+                ), tuple(o.clone() for o in out))
+            return out
+
+        wrapped[attr] = getattr(mod, attr)
+        run.launches = wrapped[attr].launches
+        setattr(mod, attr, run)
+    try:
+        yield kept
+    finally:
+        for attr, fn in wrapped.items():
+            fn.launches = getattr(mod, attr).launches
+            setattr(mod, attr, fn)
+
+
+def check_widest_scans(tag, kept, want, want_bases):
+    """Each kept launch (widest_scans) against its plain version on the
+    same inputs, at the lane checks' tolerance; fails unless kernel `want`
+    ran over `want_bases` scan bases or more. Returns {name: largest
+    distance difference}."""
+    from scintirete_tpu_torch.ops.lane_scan import (
+        lane_scan_masked_plain,
+        lane_scan_plain,
+    )
+
+    plain = {"knn_lane_topc": lane_scan_plain,
+             "knn_lane_topc_masked": lane_scan_masked_plain}
+    worst, bases = {}, {}
+    for (name, _), (_, _, args, outs) in sorted(kept.items(),
+                                                key=lambda kv: kv[0][0]):
+        err, _ = compare_lanes(
+            f"{tag} {name} B={args[0].shape[0]} N={args[2].shape[0]} "
+            f"grid_tiles={args[-1]}", outs, plain[name](*args))
+        worst[name] = max(worst.get(name, 0.0), err)
+        bases[name] = bases.get(name, 0) + 1
+    if bases.get(want, 0) < want_bases:
+        fail(f"{tag}: {want} ran over {bases.get(want, 0)} scan bases, want "
+             f"{want_bases} or more")
+    kept.clear()
+    return worst
+
+
+def check_cosine_rows(tag, ids, dists):
+    if np.any(ids == 0):
+        fail(f"{tag}: a query got fewer than {ids.shape[1]} hits")
+    if not np.all(np.isfinite(dists)) or np.any(np.diff(dists, axis=1) < 0):
+        fail(f"{tag}: distances must be finite and ascending")
+    if np.any(dists < -1e-6) or np.any(dists > 2 + 1e-6):
+        fail(f"{tag}: cosine distances must lie in [0, 2]")
+
+
+def rows_differing(a, b):
+    """Queries whose ids, and whose distance bits, differ between two
+    answers (ids, dists)."""
+    return (int(np.any(a[0] != b[0], axis=1).sum()),
+            int(np.any(a[1].view(np.uint32) != b[1].view(np.uint32),
+                       axis=1).sum()))
+
+
+def run_sharded(card, base, flat_case, main_recall, centers, seed):
+    """Phase S: the main path's corpus as two shards on the one card (S1
+    build, S2 search and waves, S3 deletes and appends, S4 export and
+    import), then S5 the engine's shard-count rule at a cut size. Each
+    kernel is also held against its plain version at the phase's own
+    shapes: every shard's widest build and append scan over its own scan
+    base, and every searched pivot table in the search's sub-batches (and
+    in waves of E_WAVE). Returns the phase's launches of the three kernels
+    it reaches and each one's largest difference from its plain version."""
+    import dataclasses
+
+    import torch
+
+    from scintirete_tpu_torch import (
+        CollectionConfig,
+        DistanceMetric,
+        SearchParams,
+    )
+    from scintirete_tpu_torch.config import TPUConfig
+    from scintirete_tpu_torch.engine import Collection, Engine
+    from scintirete_tpu_torch.index.hnsw import HNSWIndex
+    from scintirete_tpu_torch.parallel import ShardedHNSWIndex
+
+    queries, truth, del_ids, truth_after = flat_case
+    n = len(base)
+    devices = [torch.device("cuda", 0)] * S_SHARDS
+    t_phase = time.perf_counter()
+    out = {"phase": "S: the 1M HNSW collection as two shards on one card",
+           "card": card, "devices": [str(d) for d in devices]}
+    counters = kernel_counters()
+    for name in S_KERNELS:
+        counters[name].launches = 0
+    torch.cuda.reset_peak_memory_stats()
+
+    # S1: one bulk_insert, two kNN builds of n / 2
+    idx = ShardedHNSWIndex(DIM, hnsw_params(), DistanceMetric.COSINE,
+                           devices=devices)
+    shard_s = []
+    for sub in idx.subs:
+        def timed(ids, vecs, _insert=sub.bulk_insert):
+            t0 = time.perf_counter()
+            _insert(ids, vecs)
+            torch.cuda.synchronize()
+            shard_s.append(time.perf_counter() - t0)
+        sub.bulk_insert = timed
+    t0 = time.perf_counter()
+    with widest_scans() as kept:
+        idx.bulk_insert(list(range(1, n + 1)), base)
+        torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    for sub in idx.subs:
+        del sub.bulk_insert
+    # each shard's widest build scan, over its own scan base
+    errs = check_widest_scans("S1", kept, "knn_lane_topc", S_SHARDS)
+    out["shard_build_s"] = shard_s
+    out["shard_rows"] = [sub.size() for sub in idx.subs]
+    out["build_stats"] = [
+        {k: v for k, v in sub.build_stats.items() if np.isscalar(v)}
+        for sub in idx.subs
+    ]
+    log(f"S1 two-shard build of {n}: {out['build_s']:.2f} s (shards "
+        + ", ".join(f"{t:.2f} s" for t in shard_s)
+        + f"), build_stats {out['build_stats']}")
+
+    # S2: search, recall against the main path's, waves
+    sharded_search(idx, queries[:BATCH])  # each shard's mirror upload
+    ids, dists, secs = sharded_search(idx, queries)
+    check_cosine_rows("S2", ids, dists)
+    out["qps"] = len(queries) / secs
+    out["recall"] = recall_of_ids(ids, truth)
+    out["main_path_recall"] = main_recall
+    q = queries[:E_WAVE_ROWS]
+    one = sharded_search(idx, q)[:2]
+    parts = [sharded_search(idx, q[w : w + E_WAVE])[:2]
+             for w in range(0, len(q), E_WAVE)]
+    waves = tuple(np.concatenate([p[i] for p in parts]) for i in range(2))
+    out["wave_ids_differ"], out["wave_bits_differ"] = rows_differing(waves, one)
+    log(f"S2: {out['qps']:.1f} QPS, recall@10 {out['recall']:.4f} (main "
+        f"path {main_recall:.4f}); waves of {E_WAVE} vs one batch of "
+        f"{E_WAVE_ROWS}: {out['wave_ids_differ']} ids / "
+        f"{out['wave_bits_differ']} distance bits differ")
+    if out["recall"] < max(RECALL_GATE, main_recall - S_RECALL_SLACK):
+        fail(f"S2: recall@10 {out['recall']:.4f} under {RECALL_GATE} or "
+             f"more than {S_RECALL_SLACK} below the main path's "
+             f"{main_recall:.4f}")
+    if out["wave_ids_differ"] or out["wave_bits_differ"]:
+        fail("S2: an answer depends on its wave")
+
+    # S3: the main path's deletes, then 4 appends round robin
+    for vid in del_ids:
+        if not idx.delete(vid):
+            fail(f"S3: id {vid} was deleted twice")
+    ids, dists, _ = sharded_search(idx, queries)
+    check_cosine_rows("S3", ids, dists)
+    if np.isin(ids, np.asarray(del_ids, np.uint64)).any():
+        fail("S3: a deleted id came back")
+    out["recall_after_delete"] = recall_of_ids(ids, truth_after)
+    if out["recall_after_delete"] < RECALL_GATE:
+        fail(f"S3: recall@10 after delete {out['recall_after_delete']:.4f}")
+    new = points_near(np.random.default_rng(seed + 13), centers,
+                      APPEND_BATCHES * APPEND_BATCH)
+    out["append_s"] = []
+    with widest_scans() as kept:
+        for b in range(APPEND_BATCHES):
+            start = n + b * APPEND_BATCH + 1
+            t0 = time.perf_counter()
+            idx.bulk_insert(list(range(start, start + APPEND_BATCH)),
+                            new[b * APPEND_BATCH : (b + 1) * APPEND_BATCH])
+            torch.cuda.synchronize()
+            out["append_s"].append(time.perf_counter() - t0)
+    masked = counters["knn_lane_topc_masked"].launches
+    # each shard's widest append scan, over its append base
+    for name, err in check_widest_scans("S3", kept, "knn_lane_topc_masked",
+                                        S_SHARDS).items():
+        errs[name] = max(errs.get(name, 0.0), err)
+    self_ids = sharded_search(idx, new, k=1)[0][:, 0]
+    out["appended_self_first"] = float(np.mean(
+        self_ids == np.arange(n + 1, n + len(new) + 1, dtype=np.uint64)))
+    log(f"S3: deleted {len(del_ids)}, none back, recall@10 "
+        f"{out['recall_after_delete']:.4f}; appends of {APPEND_BATCH} in "
+        + ", ".join(f"{t:.3f}" for t in out["append_s"])
+        + f" s, {masked} masked scans; appended rows first for themselves "
+        f"{out['appended_self_first']:.4f}")
+    if masked <= 0:
+        fail("S3: knn_lane_topc_masked was not launched by the appends")
+    if out["appended_self_first"] < 1.0:
+        fail("S3: an appended row did not find itself first")
+    # each shard's pivot table (1% deleted) as its searches scan it
+    errs["pivot_entry_scan"] = max(
+        check_entry_scan(f"S3 shard {s}", sub, queries, "pivot", (E_WAVE,))
+        for s, sub in enumerate(idx.subs)
+    )
+
+    # S4: export, import onto the same devices, the same answers
+    t0 = time.perf_counter()
+    state = idx.export_graph_state()
+    out["export_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ShardedHNSWIndex.import_graph_state(state, params=hnsw_params(),
+                                               devices=devices)
+    out["import_s"] = time.perf_counter() - t0
+    del state
+    before = sharded_search(idx, queries)[:2]
+    after = sharded_search(back, queries)[:2]
+    out["import_ids_differ"], out["import_bits_differ"] = rows_differing(
+        after, before)
+    log(f"S4: export {out['export_s']:.2f} s, import {out['import_s']:.2f} "
+        f"s; {out['import_ids_differ']} ids / {out['import_bits_differ']} "
+        f"distance bits of {len(queries)} answers differ after the import")
+    if out["import_ids_differ"] or out["import_bits_differ"]:
+        fail("S4: the imported index answers differently")
+    out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del idx, back
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # S5: the engine's shard-count rule on this card, at a cut size
+    rows = base[:S_ENGINE_ROWS]
+    truth5 = ground_truth(torch.device("cuda"), queries, rows,
+                          np.ones(len(rows), bool), 2)
+    out["engine_cut"] = (f"S5 on the first {S_ENGINE_ROWS} rows of the "
+                         "corpus, to keep the phase short")
+    config = CollectionConfig(name="c", metric=DistanceMetric.COSINE,
+                              hnsw=hnsw_params())
+    tpu = TPUConfig(shard_devices=S_SHARDS)
+    want_shards = min(S_SHARDS, torch.cuda.device_count())
+    col = Engine(device="cuda", tpu_config=tpu).create_database("s") \
+        .create_collection(config)
+    col.insert([(v, None) for v in rows])
+    sharded = isinstance(col._index, ShardedHNSWIndex)
+    if sharded != (want_shards > 1) or (
+            not sharded and type(col._index) is not HNSWIndex):
+        fail(f"S5: shard_devices={S_SHARDS} over {want_shards} card(s) gave "
+             f"{type(col._index).__name__}")
+    sp = SearchParams(top_k=K, ef_search=12)
+    ids5, _ = col.search_batch_arrays(queries, sp)
+    for s, sub in enumerate(getattr(col._index, "subs", [col._index])):
+        errs["pivot_entry_scan"] = max(errs["pivot_entry_scan"], check_entry_scan(
+            f"S5 engine shard {s}", sub, queries, "pivot"))
+    out["engine_index"] = type(col._index).__name__
+    out["engine_recall"] = recall_of_ids(ids5, truth5)
+    two = ShardedHNSWIndex(DIM, hnsw_params(), DistanceMetric.COSINE,
+                           devices=devices)
+    two.bulk_insert(list(range(1, len(rows) + 1)), rows)
+    state = {"config": {"name": "r", "metric": int(DistanceMetric.COSINE),
+                        "hnsw": dataclasses.asdict(hnsw_params()),
+                        "device_dtype": "float32", "index_type": "hnsw"},
+             "next_id": len(rows) + 1, "deleted_count": 0, "metadata": {},
+             "graph": two.export_graph_state()}
+    del two
+    t0 = time.perf_counter()
+    restored = Collection.from_state(state, tpu_config=tpu, device="cuda")
+    out["reshard_s"] = time.perf_counter() - t0
+    out["restored_shards"] = restored._index.S
+    ids5, _ = restored.search_batch_arrays(queries, sp)
+    out["restored_recall"] = recall_of_ids(ids5, truth5)
+    for s, sub in enumerate(restored._index.subs):
+        errs["pivot_entry_scan"] = max(errs["pivot_entry_scan"], check_entry_scan(
+            f"S5 restored shard {s}", sub, queries, "pivot"))
+    log(f"S5: shard_devices={S_SHARDS} on {torch.cuda.device_count()} card(s)"
+        f" serves {out['engine_index']} at recall@10 "
+        f"{out['engine_recall']:.4f}; a two-shard state restores onto "
+        f"{out['restored_shards']} shard(s) in {out['reshard_s']:.2f} s at "
+        f"recall@10 {out['restored_recall']:.4f}")
+    if restored._index.S != want_shards:
+        fail(f"S5: a two-shard state restored onto {restored._index.S} "
+             f"shards, want {want_shards}")
+    for key in ("engine_recall", "restored_recall"):
+        if out[key] < RECALL_GATE:
+            fail(f"S5: {key} {out[key]:.4f} < {RECALL_GATE}")
+    del col, restored, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches = {name: counters[name].launches for name in S_KERNELS}
+    out["launches"] = launches
+    out["max_abs_err"] = errs
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase S in {out['phase_s']:.1f} s, peak device memory "
+        f"{out['peak_device_gib']:.2f} GiB, launches {launches}")
+    print(json.dumps(out), flush=True)
+    for name, cnt in launches.items():
+        if cnt <= 0:
+            fail(f"S: {name} was not launched by the phase")
+    return launches, errs
 
 
 def check_flat_results(name, ids, dists, queries, base, truth, gone=()):
@@ -2365,6 +2738,60 @@ def serve_flat(out, service, client, pb, dev, base, flat_case):
     return rows, queries, (ids_b[:SERVE_RESTART], d_b[:SERVE_RESTART])
 
 
+def startup_split(log_path, t_spawn, t_answer):
+    """Where the restarted `server_main` spent its time from spawn to
+    first answer, from its log: up to main() (wall clocks); main's own
+    imports, the recovery and the listeners' start from its "startup"
+    line; then up to the first answer. The warm-up search and the kernel
+    libraries' first load run after the listeners start, in the
+    background ("search prewarm done")."""
+    startup, warm = None, None
+    with open(log_path) as fh:
+        for line in fh:
+            if line.startswith("{"):
+                rec = json.loads(line)
+                if rec.get("msg") == "startup":
+                    startup = rec
+                elif rec.get("msg") == "search prewarm done":
+                    warm = rec
+    if startup is None:
+        fail("D restart: the server logged no startup line")
+    return {
+        "spawn_to_main_s": startup["main_start"] - t_spawn,
+        "main_imports_s": startup["imports_s"],
+        "recovery_s": startup["recovery_s"],
+        "listen_s": startup["listen_s"],
+        "listening_to_first_answer_s": t_answer - startup["listening"],
+        "warm_up_s": warm and warm["seconds"],
+        "kernel_load_s": warm and warm.get("kernel_load_s"),
+    }
+
+
+def import_split(root):
+    """The imports before `server_main`'s main(), in an interpreter of
+    their own under `-X importtime` (its cumulative microseconds per
+    module): seconds of the torch import and of the port package's
+    (torch included), and the interpreter's wall time in all."""
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-X", "importtime", "-c",
+         "import scintirete_tpu_torch.cli.server_main"],
+        cwd=root, capture_output=True, text=True, timeout=300,
+    )
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        fail(f"D: importing server_main failed: {run.stderr[-2000:]}")
+    cumulative = {}
+    for line in run.stderr.splitlines():
+        cols = line.split("|")
+        if line.startswith("import time:") and len(cols) == 3 \
+                and cols[1].strip().isdigit():
+            cumulative.setdefault(cols[2].strip(), int(cols[1]) / 1e6)
+    return {"torch_import_s": cumulative.get("torch"),
+            "package_import_s": cumulative.get("scintirete_tpu_torch"),
+            "interpreter_wall_s": wall}
+
+
 def restart_server(out, data_dir, dev, a_queries, flat_queries, before,
                    all_gone, surviving, flat_rows, infos):
     """Phase D's restart: `python -m scintirete_tpu_torch.cli.server_main`
@@ -2388,9 +2815,11 @@ def restart_server(out, data_dir, dev, a_queries, flat_queries, before,
     log_path = os.path.join(data_dir, "server.log")
     logf = open(log_path, "w")
     t_spawn = time.perf_counter()
+    t_spawn_wall = time.time()
     proc = subprocess.Popen(
         [sys.executable, "-m", "scintirete_tpu_torch.cli.server_main",
-         "-config", config], cwd=root, stdout=logf, stderr=subprocess.STDOUT,
+         "-config", config],
+        cwd=root, stdout=logf, stderr=subprocess.STDOUT,
     )
     client = GrpcClient(f"127.0.0.1:{grpc_port}", timeout=600)
     auth = pb.AuthInfo(password=SERVE_PASSWORD)
@@ -2416,6 +2845,7 @@ def restart_server(out, data_dir, dev, a_queries, flat_queries, before,
                     server_failed("no answer in 600 s")
                 time.sleep(0.1)
         out["restart_first_answer_s"] = time.perf_counter() - t_spawn
+        t_answer_wall = time.time()
         hnsw_q, flat_q = a_queries[:SERVE_RESTART], flat_queries[:SERVE_RESTART]
         t0 = time.perf_counter()
         ids_h, d_h, _ = packed_search(client, pb, "smoke", "c", hnsw_q, K, 12)
@@ -2466,6 +2896,15 @@ def restart_server(out, data_dir, dev, a_queries, flat_queries, before,
         out["restart_exit_code"] = rc
         if rc != 0:
             server_failed(f"exit code {rc} on SIGTERM")
+        logf.flush()
+        out["restart_split"] = startup_split(log_path, t_spawn_wall,
+                                             t_answer_wall)
+        out["import_split"] = import_split(root)
+        for key in ("restart_split", "import_split"):
+            log(f"D {key} (spawn to first answer "
+                f"{out['restart_first_answer_s']:.2f} s): "
+                + ", ".join(f"{k} {v:.3f}" if isinstance(v, float)
+                            else f"{k} {v}" for k, v in out[key].items()))
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -2622,9 +3061,8 @@ def main() -> None:
     checks["lane_topk_scan"] = check_lane_flat(dev, flat_inputs)
     del flat_inputs
     torch.cuda.empty_cache()
-    launches, engine, col, base, valid, centers, rng, flat_case, build_s = (
-        run_main_path(dev, N_BASE, N_QUERIES, args.seed)
-    )
+    (launches, engine, col, base, valid, centers, rng, flat_case, build_s,
+     main_recall) = run_main_path(dev, N_BASE, N_QUERIES, args.seed)
     replay_build_scans(dev, base, build_s, launches["knn_lane_topc"])
     # phase E1: the main path's graph through the descent entries
     t_e = time.perf_counter()
@@ -2672,6 +3110,13 @@ def main() -> None:
                 e_out["E2"]["mid_scan_max_abs_err"]), timing, bound)
         log(f"phase E in {e_out['phase_s']:.1f} s")
         print(json.dumps(e_out), flush=True)
+        s_launches, s_errs = run_sharded(card, base, flat_case, main_recall,
+                                         centers, args.seed)
+        add_launches(launches, s_launches)
+        # phase S's kernel checks at its own shapes join each kernel's error
+        for name, err in s_errs.items():
+            worst, timing, bound = checks[name]
+            checks[name] = (max(worst, err), timing, bound)
         run_chunked(dev, args.seed)
         launches.update(run_flat(dev, base, flat_case, card))
         add_launches(launches, persist_aof_only(dev, card, args.seed))

@@ -7,7 +7,9 @@ Capability parity with the reference server main
 (reference: cmd/scintirete-server/main.go:38-171): flags -config,
 -log-level; composition of engine + persistence + embedding + auth +
 observability; recovery on start; gRPC + HTTP + metrics listeners;
-SIGINT/SIGTERM graceful shutdown with a final fsync.
+SIGINT/SIGTERM graceful shutdown with a final fsync. Once it listens it
+logs a "startup" line: the wall-clock time main() began and the seconds
+of the imports inside it, of the recovery and of starting the listeners.
 
 The engine runs on `-device`: by default `[tpu] platform` of the config,
 and the card ("cuda") when that is empty; "cuda" without a card fails at
@@ -24,6 +26,7 @@ import os
 import signal
 import sys
 import threading
+import time
 
 from scintirete_tpu_torch.config import load_config
 from scintirete_tpu_torch.errors import ScintireteError
@@ -74,6 +77,7 @@ def main(argv=None) -> int:
         help="host-only mode (no device dispatch); for development",
     )
     args = parser.parse_args(argv)
+    t_main = time.time()
 
     try:
         cfg = load_config(args.config)
@@ -97,9 +101,12 @@ def main(argv=None) -> int:
     )
     metrics = MetricsRegistry()
 
+    t0 = time.perf_counter()
     from scintirete_tpu_torch.server.grpc_server import GrpcServer
     from scintirete_tpu_torch.server.http_server import HttpGateway
     from scintirete_tpu_torch.server.service import ScintireteService
+
+    imports_s = time.perf_counter() - t0
 
     service = ScintireteService(
         cfg,
@@ -109,8 +116,11 @@ def main(argv=None) -> int:
         use_device=not args.no_device,
         device=device,
     )
+    t0 = time.perf_counter()
     recovery = service.start()
+    recovery_s = time.perf_counter() - t0
     logger.info("recovery", device=device, **recovery)
+    t0 = time.perf_counter()
 
     grpc_server = GrpcServer(service, cfg.server.grpc_host, cfg.server.grpc_port)
     grpc_server.start()
@@ -121,6 +131,9 @@ def main(argv=None) -> int:
     logger.info(
         "HTTP listening", address=f"{cfg.server.http_host}:{http_gateway.port}"
     )
+    logger.info("startup", main_start=t_main, imports_s=imports_s,
+                recovery_s=recovery_s, listen_s=time.perf_counter() - t0,
+                listening=time.time())
 
     metrics_server = None
     if cfg.observability.metrics_enabled:

@@ -1,7 +1,9 @@
 """Collection: a named vector set backed by one index, HNSW or flat
 (`config.index_type`). Port of `scintirete_tpu/engine/collection.py` onto
-the port's `HNSWIndex` and `FlatIndex`; the collection passes its torch
-`device` down to the index.
+the port's `HNSWIndex`, `FlatIndex` and `ShardedHNSWIndex` (an HNSW
+collection on the device with `[tpu] shard_devices` > 1 and more than one
+device of its type); the collection passes its torch `device` down to the
+index.
 
 Capability parity with the reference's Collection
 (reference: internal/core/database/collection.go:18-412): server-side
@@ -30,6 +32,11 @@ from scintirete_tpu_torch.errors import (
     dimension_mismatch,
 )
 from scintirete_tpu_torch.index.hnsw import HNSWIndex
+from scintirete_tpu_torch.parallel.sharded import (
+    ShardedHNSWIndex,
+    available_devices,
+    make_default_mesh,
+)
 from scintirete_tpu_torch.types import (
     CollectionConfig,
     CollectionInfo,
@@ -44,11 +51,6 @@ class Collection:
     def __init__(self, config: CollectionConfig, use_device: bool = True,
                  tpu_config=None, device="cuda"):
         config.validate()
-        if tpu_config is not None and tpu_config.shard_devices > 1:
-            raise NotImplementedError(
-                "shard_devices > 1 is not ported yet: ROADMAP.md Queue 1, "
-                "sharding item (parallel/sharded.py)"
-            )
         self.device = device
         self._tpu = tpu_config
         self.config = config
@@ -72,6 +74,13 @@ class Collection:
         self.uid = uuid.uuid4().hex
 
     # ----- helpers -----
+
+    def _shard_count(self) -> int:
+        """Shards of an HNSW collection on the device: `[tpu]
+        shard_devices`, at most the devices of this collection's type."""
+        if self._tpu is None or self._tpu.shard_devices <= 1:
+            return 1
+        return min(self._tpu.shard_devices, available_devices(self.device))
 
     def _ensure_index(self, dim: int) -> HNSWIndex:
         if self._index is None:
@@ -100,6 +109,14 @@ class Collection:
                 use_device=self._use_device,
                 device=self.device,
                 **self._flat_kwargs(),
+            )
+        shards = self._shard_count()
+        if self._use_device and shards > 1:
+            return ShardedHNSWIndex(
+                dim=dim,
+                params=self.config.hnsw,
+                metric=self.config.metric,
+                devices=make_default_mesh(shards, self.device),
             )
         kwargs = {}
         if self._tpu is not None:
@@ -234,15 +251,20 @@ class Collection:
             new_index = self._new_index(self._dim)
             if live_ids:
                 # one fancy-indexed gather instead of a per-vector
-                # get_vector loop (lock + copy per call — minutes at 1M)
-                slots = np.fromiter(
-                    (old.id_to_slot[vid] for vid in live_ids),
-                    np.int64,
-                    len(live_ids),
-                )
-                # an HNSW index keeps its rows in its store, a flat one itself
-                arrays = getattr(old, "store", old).vectors
-                new_index.bulk_insert(live_ids, arrays[slots].copy())
+                # get_vector loop (lock + copy per call — minutes at 1M).
+                # An HNSW index keeps its rows in its store, a flat one
+                # itself; a sharded one has no flat array and keeps the loop
+                arrays = getattr(getattr(old, "store", old), "vectors", None)
+                if arrays is not None:
+                    slots = np.fromiter(
+                        (old.id_to_slot[vid] for vid in live_ids),
+                        np.int64,
+                        len(live_ids),
+                    )
+                    mats = arrays[slots].copy()
+                else:
+                    mats = np.stack([old.get_vector(vid) for vid in live_ids])
+                new_index.bulk_insert(live_ids, mats)
             with self._rw.write():
                 self._index = new_index
                 live_set = set(live_ids)
@@ -278,7 +300,20 @@ class Collection:
                         np.zeros((b, 0), np.float32))
             if queries.shape[-1] != self._dim:
                 raise dimension_mismatch(self._dim, int(queries.shape[-1]))
-            return self._index.search_batch_arrays(queries, params)
+            fast = getattr(self._index, "search_batch_arrays", None)
+            if fast is not None:
+                return fast(queries, params)
+            # a sharded index has no packed path: convert its lists, k the
+            # longest row
+            raw = self._index.search_batch(queries, params)
+            k = max((len(r) for r in raw), default=0)
+            ids = np.zeros((len(raw), k), np.uint64)
+            dists = np.full((len(raw), k), np.inf, np.float32)
+            for i, row in enumerate(raw):
+                for j, (vid, dist) in enumerate(row):
+                    ids[i, j] = vid
+                    dists[i, j] = dist
+            return ids, dists
 
     def search_batch(
         self, queries: np.ndarray, params: SearchParams
@@ -407,11 +442,6 @@ class Collection:
             )
         graph = state.get("graph")
         if graph is not None:
-            if graph.get("sharded"):
-                raise NotImplementedError(
-                    "restoring a sharded collection is not ported yet: "
-                    "ROADMAP.md Queue 1, sharding item"
-                )
             if graph.get("kind") == "flat":
                 from scintirete_tpu_torch.index.flat import FlatIndex
 
@@ -419,6 +449,16 @@ class Collection:
                     graph, device_dtype=config.device_dtype,
                     use_device=use_device, device=device,
                     **col._flat_kwargs(),
+                )
+            elif graph.get("sharded"):
+                # the configured shard count where it is above 1, else
+                # every device of the type (the JAX package's rule)
+                shards = col._shard_count()
+                col._index = ShardedHNSWIndex.import_graph_state(
+                    graph,
+                    params=config.hnsw,
+                    devices=make_default_mesh(
+                        shards if shards > 1 else None, device),
                 )
             else:
                 col._index = HNSWIndex.import_graph_state(

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -65,6 +66,9 @@ LIBRARIES = sorted({lib for lib, _, _ in SIGNATURES.values()})
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes._CFuncPtr] = {}
+# seconds the first kernel() call took to build or find the libraries and
+# load them; None until a kernel is first asked for
+load_seconds: float | None = None
 
 
 def _nvcc() -> str:
@@ -130,12 +134,15 @@ def kernel(name: str) -> ctypes._CFuncPtr:
     fn = _loaded.get(name)
     if fn is not None:
         return fn
+    global load_seconds
     with _lock:
         if not _loaded:
+            t0 = time.perf_counter()
             libs = {n: ctypes.CDLL(str(p)) for n, p in build_all().items()}
             for entry, (lib_name, symbol, argtypes) in SIGNATURES.items():
                 f = getattr(libs[lib_name], symbol)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
                 _loaded[entry] = f
+            load_seconds = time.perf_counter() - t0
         return _loaded[name]

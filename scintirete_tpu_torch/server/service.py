@@ -39,6 +39,7 @@ from scintirete_tpu_torch.errors import ErrorCode, ScintireteError
 from scintirete_tpu_torch.observability.audit import AuditLogger, hash_user_id
 from scintirete_tpu_torch.observability.logger import StructuredLogger
 from scintirete_tpu_torch.observability.metrics import MetricsRegistry
+from scintirete_tpu_torch.ops import _ext
 from scintirete_tpu_torch.persistence import PersistenceManager
 from scintirete_tpu_torch.proto import scintirete_pb2 as pb
 from scintirete_tpu_torch.server.auth import BasicAuthenticator
@@ -162,6 +163,8 @@ class ScintireteService:
                 "collections": warmed,
                 "width": width,
                 "seconds": round(time.time() - t0, 3),
+                # the kernel libraries' first load, wherever it happened
+                "kernel_load_s": _ext.load_seconds,
             }
             if warmed:
                 self.logger.info("search prewarm done", **self._warm_info)

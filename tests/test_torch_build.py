@@ -20,8 +20,10 @@ from scintirete_tpu.types import (
 )
 from scintirete_tpu_torch.config import TPUConfig
 from scintirete_tpu_torch.engine import Engine
+from scintirete_tpu_torch.index.flat import FlatIndex
 from scintirete_tpu_torch.index.hnsw import HNSWIndex
 from scintirete_tpu_torch.ops.distance import distance_np
+from scintirete_tpu_torch.parallel import ShardedHNSWIndex
 
 N, D, NQ, K = 3000, 16, 200, 10
 PARAMS = HNSWParams(m=8, ef_construction=64, ef_search=12, seed=11,
@@ -141,12 +143,26 @@ def test_recall_and_state_crosses_to_jax(built, data):
     assert _recall(back.search_batch(queries, sp), truth) >= port_rec - 0.01
 
 
+def _shard_devices_2_serves(base):
+    """A `shard_devices = 2` CPU engine shards an HNSW collection in two
+    and keeps a flat one whole; both insert and search."""
+    db = Engine(device="cpu", tpu_config=TPUConfig(shard_devices=2)) \
+        .create_database("x")
+    hnsw = db.create_collection(CollectionConfig(
+        name="s", hnsw=HNSWParams(m=8, ef_construction=24, seed=11)))
+    flat = db.create_collection(CollectionConfig(name="f", index_type="flat"))
+    for col in (hnsw, flat):
+        assert col.insert([(v, None) for v in base[:64]]) == list(range(1, 65))
+        assert col.search(base[7], SearchParams(top_k=1))[0].id == 8
+    assert isinstance(hnsw._index, ShardedHNSWIndex) and hnsw._index.S == 2
+    assert isinstance(flat._index, FlatIndex)
+
+
 def test_unported_paths_raise_before_mutation(built, data):
-    """What the port still leaves out, sharding, raises NotImplementedError
-    naming ROADMAP.md before it changes anything. The paths this used to
-    list run now, on the same graph and corpus: the descent search (top-down
-    and mid-layer entry) and a refine_rounds > 0 build; the flat index and
-    AOF replay are ported too."""
+    """The paths this used to list as raising run now, on the same graph
+    and corpus, and leave it unchanged: the descent search (top-down and
+    mid-layer entry) and a refine_rounds > 0 build; the flat index, AOF
+    replay and sharding (`shard_devices = 2`) are ported too."""
     base, _ = data
     port, _ = built
     before = port.export_graph_state()
@@ -172,9 +188,7 @@ def test_unported_paths_raise_before_mutation(built, data):
     db = engine.create_database("db")
     flat = db.create_collection(CollectionConfig(name="f", index_type="flat"))
     assert flat.info().index_type == "flat"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(device="cpu", tpu_config=TPUConfig(shard_devices=2)) \
-            .create_database("x").create_collection(CollectionConfig(name="s"))
+    _shard_devices_2_serves(base)
     engine.apply_command({"command_type": "CREATE_DATABASE", "database": "a"})
     assert db.list_collections() == ["f"]
     assert engine.list_databases() == ["a", "db"]
@@ -213,9 +227,7 @@ def test_engine_surface_on_cpu(data):
     flat = db.create_collection(CollectionConfig(name="f", index_type="flat"))
     flat.insert([(v, None) for v in vecs[:40]])
     assert flat.search(vecs[7], sp)[0].id == 8
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(device="cpu", tpu_config=TPUConfig(shard_devices=2)) \
-            .create_database("x").create_collection(CollectionConfig(name="s"))
+    _shard_devices_2_serves(base)
     # the AOF-rewrite stream replays into an equal engine
     engine3 = Engine(device="cpu")
     for cmd in engine.get_optimized_commands():

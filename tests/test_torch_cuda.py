@@ -17,8 +17,8 @@ lane folds must break in tile order, the four flat scans at odd shapes,
 with every row masked and with overflowed norms, the packed and the
 unpacked int8 scans at ragged B, padded and deep D and over 2^20 rows
 (split and unsplit walks for the packed ones), equal scores in every tile
-of a lane, and a small build, append, search and flat collection on the
-card.
+of a lane, and a small build, append, search, flat collection and
+two-shard index on the card.
 """
 
 import numpy as np
@@ -809,3 +809,39 @@ def test_collection_saved_and_recovered_on_the_card(dev, tmp_path, index_type):
     assert not np.isin(got[0], np.asarray(ids[:60], np.uint64)).any()
     assert col2.get(ids[100]).metadata == {"i": 100}
     assert col2.count() == col.count() == 4940
+
+
+def test_sharded_index_on_the_card(dev):
+    """Two shards on one card: each builds through the lane scan, searches
+    through the pivot scan, takes a batched append through the masked scan,
+    and an exported state imports to the same answers, bit for bit."""
+    from scintirete_tpu_torch import DistanceMetric, HNSWParams, SearchParams
+    from scintirete_tpu_torch.ops.distance import distance_np
+    from scintirete_tpu_torch.ops.lane_scan import lane_scan, lane_scan_masked
+    from scintirete_tpu_torch.ops.pivot_scan import pivot_entry_scan
+    from scintirete_tpu_torch.parallel import ShardedHNSWIndex
+
+    rng = np.random.default_rng(2)
+    base = rng.standard_normal((9100, 32)).astype(np.float32)
+    devices = [dev, dev]
+    idx = ShardedHNSWIndex(32, HNSWParams(m=16, seed=3, neighbor_heuristic=True),
+                           DistanceMetric.COSINE, devices=devices)
+    counts = [op.launches for op in (lane_scan, lane_scan_masked,
+                                     pivot_entry_scan)]
+    idx.bulk_insert(list(range(1, 5001)), base[:5000])  # two kNN builds
+    idx.bulk_insert(list(range(5001, 9101)), base[5000:])  # two appends
+    q = base[:200] + 0.01
+    sp = SearchParams(top_k=10)
+    res = idx.search_batch(q, sp)
+    after = [op.launches for op in (lane_scan, lane_scan_masked,
+                                     pivot_entry_scan)]
+    assert all(a > c for a, c in zip(after, counts))
+    truth = np.argsort(distance_np(q, base, 2), axis=1)[:, :10] + 1
+    rec = np.mean([len({v for v, _ in r} & set(t)) / 10
+                   for r, t in zip(res, truth)])
+    assert rec >= 0.95
+    tail = idx.search_batch(base[5000:], SearchParams(top_k=1))
+    assert np.mean([r[0][0] == 5001 + i for i, r in enumerate(tail)]) >= 0.99
+    back = ShardedHNSWIndex.import_graph_state(idx.export_graph_state(),
+                                               devices=devices)
+    assert back.search_batch(q, sp) == res

@@ -49,6 +49,24 @@ col = Engine(device="cpu").create_database("d").create_collection(
 )
 col.insert([(v, None) for v in base[:300]])
 assert col.search(base[290], SearchParams(top_k=1))[0].id == 291
+# sharding: a two-shard HNSW index, a sharded flat index and a
+# shard_devices = 2 engine
+from scintirete_tpu_torch.config import TPUConfig
+from scintirete_tpu_torch.parallel import (
+    ShardedFlatIndex, ShardedHNSWIndex, make_default_mesh,
+)
+two = make_default_mesh(2, "cpu")
+sharded = ShardedHNSWIndex(8, params, DistanceMetric.COSINE, devices=two)
+sharded.bulk_insert(list(range(1, 201)), base[:200])
+assert sharded.search_batch(base[7:8], SearchParams(top_k=3))[0][0][0] == 8
+sflat = ShardedFlatIndex(8, DistanceMetric.L2, devices=two)
+sflat.build(list(range(1, 201)), base[:200])
+assert sflat.search(base[7:8], k=1)[0][0][0] == 8
+col = Engine(device="cpu", tpu_config=TPUConfig(shard_devices=2)) \
+    .create_database("d").create_collection(CollectionConfig(name="c", hnsw=params))
+col.insert([(v, None) for v in base[:100]])
+assert isinstance(col._index, ShardedHNSWIndex)
+assert col.search(base[50], SearchParams(top_k=1))[0].id == 51
 # a flat collection (the two-pass route) and a flat index on the fused route
 flat = Engine(device="cpu").create_database("d").create_collection(
     CollectionConfig(name="f", index_type="flat")
@@ -143,8 +161,9 @@ print("ok")
 
 def test_port_builds_and_searches_without_jax():
     """A build, an append, the descent and mid-layer searches, a seq
-    upper-layer build, a refined build, a chunked insert, a flat insert,
-    delete and search on both flat routes, a snapshot, a recovery, an AOF rewrite and
+    upper-layer build, a refined build, a chunked insert, a sharded HNSW
+    index, a sharded flat index and a `shard_devices = 2` engine, a flat
+    insert, delete and search on both flat routes, a snapshot, a recovery, an AOF rewrite and
     the server's service answering one request over gRPC and one over HTTP
     leave neither jax, any module of the JAX package nor flatbuffers in
     sys.modules."""

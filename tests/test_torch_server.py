@@ -334,8 +334,13 @@ def assert_same(got, want, where="", sq_tol=0.0):
             tol = max(tol, sq_tol / max(g + w, 1e-30))
         assert abs(g - w) <= tol, (where, got, want, tol)
     elif isinstance(want, dict):
-        assert isinstance(got, dict) and got.keys() == want.keys(), (
-            where, got, want)
+        assert isinstance(got, dict), (where, got, want)
+        # proto3 JSON leaves out a float field at its default: a distance
+        # of exactly 0.0 (an exact match) is absent from that side's dict
+        for key in DISTANCE_KEYS:
+            if (key in got) != (key in want):
+                got, want = {key: 0.0, **got}, {key: 0.0, **want}
+        assert got.keys() == want.keys(), (where, got, want)
         for key in want:
             assert_same(got[key], want[key], f"{where}.{key}", sq_tol)
     elif isinstance(want, list):

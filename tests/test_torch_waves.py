@@ -79,3 +79,32 @@ def test_search_answers_do_not_depend_on_the_wave(dev, metric):
         i, d = col.search_batch_arrays(queries[j : j + 1], sp)
         assert np.array_equal(i[0], want_i[j])
         assert np.array_equal(d[0], want_d[j])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k", [10, 200])
+@pytest.mark.parametrize("metric", list(DistanceMetric)[1:])
+def test_flat_answers_do_not_depend_on_the_wave(dev, metric, top_k):
+    """On the card: a flat collection under 262,144 rows of capacity (so
+    `flat_topk`, not the fused lane scan; top_k = 200 takes it at any
+    size). Each of 256 queries searched alone gets the ids and distance
+    bits it gets inside one batch of 256."""
+    rng = np.random.default_rng(int(metric) + top_k)
+    base = rng.standard_normal((20_000, 128)).astype(np.float32)
+    queries = base[:256] + 0.1 * rng.standard_normal((256, 128)).astype(
+        np.float32)
+    col = Engine(device=dev).create_database("d").create_collection(
+        CollectionConfig(name="f", metric=metric, index_type="flat"))
+    col.insert([(v, None) for v in base])
+    sp = SearchParams(top_k=top_k)
+    want_i, want_d = col.search_batch_arrays(queries, sp)
+    alone = [col.search_batch_arrays(queries[j : j + 1], sp)
+             for j in range(len(queries))]
+    got_i = np.concatenate([i for i, _ in alone])
+    got_d = np.concatenate([d for _, d in alone])
+    ids_differ = int(np.any(got_i != want_i, axis=1).sum())
+    bits_differ = int(np.any(got_d.view(np.uint32) != want_d.view(np.uint32),
+                             axis=1).sum())
+    assert (ids_differ, bits_differ) == (0, 0), (
+        f"{ids_differ} queries alone got other ids, {bits_differ} other "
+        "distance bits, than in the batch")
