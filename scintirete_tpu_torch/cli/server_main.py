@@ -15,8 +15,13 @@ The engine runs on `-device`: by default `[tpu] platform` of the config,
 and the card ("cuda") when that is empty; "cuda" without a card fails at
 start, with no fallback to the CPU. `--no-device` keeps every search and
 insert on the host paths. `-trace DIR` records a `torch.profiler` trace
-over the server's life and writes it to DIR at shutdown (the reference's
-`runtime/trace`-to-file flag, cmd/scintirete-server/main.go:60-87).
+over the server's life, turns the port's span tracer on
+(`observability/trace.py`), and at shutdown writes both to
+DIR/trace.json: the spans as a process of their own ("scintirete spans",
+a track per thread) in the profiler file's time base, so that program
+spans and the profiler's host and device events open aligned in one
+viewer (the reference's `runtime/trace`-to-file flag,
+cmd/scintirete-server/main.go:60-87).
 """
 
 from __future__ import annotations
@@ -36,11 +41,13 @@ from scintirete_tpu_torch.observability.metrics import (
     MetricsRegistry,
     MetricsServer,
 )
+from scintirete_tpu_torch.observability import trace
 from scintirete_tpu_torch.observability.monitor import SystemMonitor
 
 
 def start_trace(device: str):
-    """A running torch.profiler over the host and, on the card, CUDA."""
+    """A running torch.profiler over the host and, on the card, CUDA,
+    and the span tracer on."""
     import torch
 
     activities = [torch.profiler.ProfilerActivity.CPU]
@@ -48,7 +55,20 @@ def start_trace(device: str):
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=activities)
     prof.start()
+    trace.enable()
     return prof
+
+
+def write_trace(prof, directory: str) -> str:
+    """Stop the profiler and the span tracer; write DIR/trace.json with
+    the spans added to the profiler's events. Returns its path."""
+    trace.disable()
+    prof.stop()
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, "trace.json")
+    prof.export_chrome_trace(path)
+    trace.add_to_chrome_trace(path, trace.drain())
+    return path
 
 
 def main(argv=None) -> int:
@@ -69,8 +89,9 @@ def main(argv=None) -> int:
     )
     parser.add_argument(
         "-trace", "--trace", default=None, metavar="DIR",
-        help="record a torch.profiler trace over the server's life and "
-        "write it to DIR/trace.json at shutdown",
+        help="record a torch.profiler trace and the server's own spans "
+        "over its life and write them to DIR/trace.json at shutdown (the "
+        "spans as a process of their own, in the profiler's time base)",
     )
     parser.add_argument(
         "--no-device", action="store_true",
@@ -174,10 +195,7 @@ def main(argv=None) -> int:
 
     stop_event.wait()
     if prof is not None:
-        prof.stop()
-        os.makedirs(args.trace, exist_ok=True)
-        path = os.path.join(args.trace, "trace.json")
-        prof.export_chrome_trace(path)
+        path = write_trace(prof, args.trace)
         logger.info("torch profiler trace written", path=path)
     monitor.stop()
     grpc_server.stop()

@@ -32,6 +32,7 @@ from scintirete_tpu_torch.errors import (
     dimension_mismatch,
 )
 from scintirete_tpu_torch.index.hnsw import HNSWIndex
+from scintirete_tpu_torch.observability import trace
 from scintirete_tpu_torch.parallel.sharded import (
     ShardedHNSWIndex,
     available_devices,
@@ -149,6 +150,10 @@ class Collection:
         (reference: collection.go:71-149 — nextID++ per vector)."""
         if not vectors:
             return []
+        with trace.span("engine.insert", n=len(vectors)):
+            return self._insert(vectors)
+
+    def _insert(self, vectors) -> list[int]:
         mats = [np.asarray(e, np.float32) for e, _ in vectors]
         for m in mats:
             if m.ndim != 1:
@@ -292,7 +297,8 @@ class Collection:
         """Packed-array search (BatchSearch RPC): (ids u64 [B,k], dists f32
         [B,k]); id 0 / +inf mark missing hits. No metadata, no SearchResult
         objects — response shaping is two tobytes() calls."""
-        with self._rw.read():
+        with trace.span("engine.search", n=len(queries)), \
+                self._rw.read(span="engine.lock"):
             queries = np.asarray(queries, np.float32)
             if self._index is None:
                 b = queries.shape[0]
@@ -318,7 +324,8 @@ class Collection:
     def search_batch(
         self, queries: np.ndarray, params: SearchParams
     ) -> list[list[SearchResult]]:
-        with self._rw.read():
+        with trace.span("engine.search", n=len(queries)), \
+                self._rw.read(span="engine.lock"):
             if self._index is None:
                 return [[] for _ in range(len(queries))]
             queries = np.asarray(queries, np.float32)

@@ -60,6 +60,7 @@ import torch
 
 from scintirete_tpu_torch.types import DistanceMetric
 from scintirete_tpu_torch.index.store import GraphStore
+from scintirete_tpu_torch.observability import trace
 from scintirete_tpu_torch.ops.pivot_scan import (
     pivot_distance_block,
     pivot_entry_scan,
@@ -130,6 +131,13 @@ def _make_dist_fn(queries, vectors, sq_norms, metric):
 # ---------------------------------------------------------------------------
 
 
+def _host_any(mask) -> bool:
+    """`mask.any()` on the host: a search loop's one wait for the device
+    per step (the `beam.sync` span)."""
+    with trace.span("beam.sync"):
+        return bool(mask.any())
+
+
 def _fused_greedy(dist_to, row_of, nbr_table, deleted, cur, cur_d, lvl,
                   stop_lvl, max_iters):
     """Hill-climb each query at its own layer; on local convergence move
@@ -138,19 +146,21 @@ def _fused_greedy(dist_to, row_of, nbr_table, deleted, cur, cur_d, lvl,
     barriers. `row_of(lvl, slots)` maps a query's node at its layer to its
     row of `nbr_table` (-1 where absent). Returns (cur, cur_d, steps)."""
     it = 0
-    while it < max_iters and bool((lvl > stop_lvl).any()):
-        active = lvl > stop_lvl
-        row = torch.where(active, row_of(lvl, cur), -1)
-        nbrs = nbr_table[row.clamp(min=0)]  # [B, M]
-        safe = nbrs.clamp(min=0)
-        ok = (nbrs >= 0) & (row >= 0)[:, None] & ~deleted[safe]
-        d = torch.where(ok, dist_to(safe), _INF)
-        best = torch.argmin(d, dim=1)  # first minimum, as jnp.argmin
-        best_d = d.gather(1, best[:, None])[:, 0]
-        improve = (best_d < cur_d) & active
-        cur = torch.where(improve, nbrs.gather(1, best[:, None])[:, 0], cur)
-        cur_d = torch.where(improve, best_d, cur_d)
-        lvl = torch.where(active & ~improve, lvl - 1, lvl)
+    while it < max_iters and _host_any(lvl > stop_lvl):
+        with trace.span("beam.step"):
+            active = lvl > stop_lvl
+            row = torch.where(active, row_of(lvl, cur), -1)
+            nbrs = nbr_table[row.clamp(min=0)]  # [B, M]
+            safe = nbrs.clamp(min=0)
+            ok = (nbrs >= 0) & (row >= 0)[:, None] & ~deleted[safe]
+            d = torch.where(ok, dist_to(safe), _INF)
+            best = torch.argmin(d, dim=1)  # first minimum, as jnp.argmin
+            best_d = d.gather(1, best[:, None])[:, 0]
+            improve = (best_d < cur_d) & active
+            cur = torch.where(improve, nbrs.gather(1, best[:, None])[:, 0],
+                              cur)
+            cur_d = torch.where(improve, best_d, cur_d)
+            lvl = torch.where(active & ~improve, lvl - 1, lvl)
         it += 1
     return cur, cur_d, it
 
@@ -256,14 +266,15 @@ def _ef_beam_layer0(dist_to, neighbors0, deleted, entry_slots, entry_dists,
     steps = 0
     while steps < max_steps:
         active = ~_beam_converged(cand_s, cand_d, expanded)
-        if not bool(active.any()):
+        if not _host_any(active):
             break
-        cand_s, cand_d, expanded = _beam_step(
-            dist_to, deleted, cand_s, cand_d, expanded,
-            rows_of_slots=lambda slots: slots,
-            nbr_lookup=lambda rows: neighbors0[rows],
-            active=active, expand=expand,
-        )
+        with trace.span("beam.step"):
+            cand_s, cand_d, expanded = _beam_step(
+                dist_to, deleted, cand_s, cand_d, expanded,
+                rows_of_slots=lambda slots: slots,
+                nbr_lookup=lambda rows: neighbors0[rows],
+                active=active, expand=expand,
+            )
         steps += 1
     return torch.where(torch.isinf(cand_d), -1, cand_s), cand_d, steps
 
@@ -282,19 +293,20 @@ def _fused_beam_descent_lists(dist_to, row_of, nbr_table, deleted, cand_s,
     expand = min(expand, ef_upper)
     expanded = torch.zeros_like(cand_s, dtype=torch.bool)
     it = 0
-    while it < max_iters and bool((lvl > 0).any()):
-        at_layer = lvl > 0
-        active = at_layer & ~_beam_converged(cand_s, cand_d, expanded)
-        cur_lvl = lvl
-        cand_s, cand_d, expanded = _beam_step(
-            dist_to, deleted, cand_s, cand_d, expanded,
-            rows_of_slots=lambda slots: row_of(cur_lvl, slots),
-            nbr_lookup=lambda rows: nbr_table[rows],
-            active=active, expand=expand,
-        )
-        step_down = at_layer & _beam_converged(cand_s, cand_d, expanded)
-        lvl = torch.where(step_down, lvl - 1, lvl)
-        expanded = expanded & ~step_down[:, None]
+    while it < max_iters and _host_any(lvl > 0):
+        with trace.span("beam.step"):
+            at_layer = lvl > 0
+            active = at_layer & ~_beam_converged(cand_s, cand_d, expanded)
+            cur_lvl = lvl
+            cand_s, cand_d, expanded = _beam_step(
+                dist_to, deleted, cand_s, cand_d, expanded,
+                rows_of_slots=lambda slots: row_of(cur_lvl, slots),
+                nbr_lookup=lambda rows: nbr_table[rows],
+                active=active, expand=expand,
+            )
+            step_down = at_layer & _beam_converged(cand_s, cand_d, expanded)
+            lvl = torch.where(step_down, lvl - 1, lvl)
+            expanded = expanded & ~step_down[:, None]
         it += 1
     return cand_s, cand_d, it
 
@@ -911,6 +923,8 @@ class DeviceIndex:
         self.graph = DeviceGraph(device, dtype)
         self.max_batch = max_batch
         self.steps = {"batches": 0, "upper": 0, "layer0": 0}
+        # serving threads search at once: their counts must not be lost
+        self._steps_mu = threading.Lock()
 
     @property
     def device(self) -> torch.device:
@@ -942,7 +956,8 @@ class DeviceIndex:
         if entry_mode not in self.ENTRY_MODES:
             raise ValueError(f"entry_mode must be one of {self.ENTRY_MODES}, "
                              f"not {entry_mode!r}")
-        self.sync(store, mid=entry_mode == "descent" and descent_mid)
+        with trace.span("search.mirror"):
+            self.sync(store, mid=entry_mode == "descent" and descent_mid)
         ef = max(ef, k)
         ef_upper = max(int(ef_upper), 1)
         # generous bound; convergence normally stops the loop much earlier
@@ -950,37 +965,40 @@ class DeviceIndex:
         a = self.graph.arrays
         metric = int(store.metric)
         entry, entry_level = self._entry_info(store)
-        q_all = torch.from_numpy(np.ascontiguousarray(queries, np.float32))
-        q_all = q_all.to(self.device)
+        with trace.span("search.upload"):
+            q_all = torch.from_numpy(np.ascontiguousarray(queries, np.float32))
+            q_all = q_all.to(self.device)
         use_mid = descent_mid and "mid_slots" in a and self.graph.mid_level >= 1
         outs = []
         for start in range(0, q_all.shape[0], self.max_batch):
             q = q_all[start : start + self.max_batch]
             common = (q, a["vectors"], a["sq_norms"], a["deleted"],
                       a["neighbors0"])
-            if entry_mode == "pivot":
-                d, s, l0 = _search_kernel_pivot(
-                    *common, a["pivots"], a["pivot_vecs"], a["pivot_sq"],
-                    metric=metric, ef=ef, k=k, max_steps=max_steps,
-                )
-                up = 0
-            elif use_mid:
-                d, s, (up, l0) = _search_kernel_mid(
-                    *common, a["up_nbrs_cat"], a["up_rows_flat"],
-                    a["mid_slots"], a["mid_vecs"], a["mid_sq"],
-                    self.graph.mid_level, metric=metric, ef=ef, k=k,
-                    max_steps=max_steps, ef_upper=ef_upper,
-                    scan_rows=self.max_batch,
-                )
-            else:
-                d, s, (up, l0) = _search_kernel(
-                    *common, a["up_nbrs_cat"], a["up_rows_flat"], entry,
-                    entry_level, metric=metric, ef=ef, k=k,
-                    max_steps=max_steps, ef_upper=ef_upper,
-                )
-            self.steps["batches"] += 1
-            self.steps["upper"] += up
-            self.steps["layer0"] += l0
+            with trace.span("beam.subbatch", n=q.shape[0]):
+                if entry_mode == "pivot":
+                    d, s, l0 = _search_kernel_pivot(
+                        *common, a["pivots"], a["pivot_vecs"], a["pivot_sq"],
+                        metric=metric, ef=ef, k=k, max_steps=max_steps,
+                    )
+                    up = 0
+                elif use_mid:
+                    d, s, (up, l0) = _search_kernel_mid(
+                        *common, a["up_nbrs_cat"], a["up_rows_flat"],
+                        a["mid_slots"], a["mid_vecs"], a["mid_sq"],
+                        self.graph.mid_level, metric=metric, ef=ef, k=k,
+                        max_steps=max_steps, ef_upper=ef_upper,
+                        scan_rows=self.max_batch,
+                    )
+                else:
+                    d, s, (up, l0) = _search_kernel(
+                        *common, a["up_nbrs_cat"], a["up_rows_flat"], entry,
+                        entry_level, metric=metric, ef=ef, k=k,
+                        max_steps=max_steps, ef_upper=ef_upper,
+                    )
+            with self._steps_mu:
+                self.steps["batches"] += 1
+                self.steps["upper"] += up
+                self.steps["layer0"] += l0
             outs.append((d, s))
         return outs
 
@@ -989,8 +1007,9 @@ class DeviceIndex:
         """Fetch a search_submit handle to the host."""
         if not payload:
             return np.empty((0, 0), np.int64), np.empty((0, 0), np.float32)
-        d = torch.cat([d for d, _ in payload]).cpu().numpy()
-        s = torch.cat([s for _, s in payload]).cpu().numpy()
+        with trace.span("search.collect"):
+            d = torch.cat([d for d, _ in payload]).cpu().numpy()
+            s = torch.cat([s for _, s in payload]).cpu().numpy()
         return s.astype(np.int64), d.astype(np.float32, copy=False)
 
     @staticmethod

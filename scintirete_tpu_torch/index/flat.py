@@ -53,6 +53,7 @@ from scintirete_tpu_torch.errors import (
 )
 from scintirete_tpu_torch.index.hnsw import resolve_device
 from scintirete_tpu_torch.index.results import assemble_arrays, assemble_results
+from scintirete_tpu_torch.observability import trace
 from scintirete_tpu_torch.ops.lane_scan import LANES, scan_width
 from scintirete_tpu_torch.types import DistanceMetric, HNSWParams, SearchParams
 from scintirete_tpu_torch.utils.rwlock import RWLock
@@ -296,11 +297,12 @@ class FlatIndex:
         self, queries: np.ndarray, params: SearchParams
     ) -> list[list[tuple[int, float]]]:
         queries = self._check_queries(queries)
-        with self._rw.read():
+        with self._rw.read(span="index.lock"):
             if self.live == 0:
                 return [[] for _ in range(queries.shape[0])]
             slots_b, dists_b = self._search_slots(queries, params)
-            return assemble_results(self.slot_to_id, slots_b, dists_b)
+            with trace.span("index.assemble"):
+                return assemble_results(self.slot_to_id, slots_b, dists_b)
 
     def search_batch_arrays(
         self, queries: np.ndarray, params: SearchParams
@@ -309,13 +311,14 @@ class FlatIndex:
         dists f32 [B,k]); id 0 / +inf mark missing hits. Skips the per-hit
         tuple assembly."""
         queries = self._check_queries(queries)
-        with self._rw.read():
+        with self._rw.read(span="index.lock"):
             if self.live == 0:
                 b = queries.shape[0]
                 return (np.zeros((b, 0), np.uint64),
                         np.zeros((b, 0), np.float32))
             slots_b, dists_b = self._search_slots(queries, params)
-            return assemble_arrays(self.slot_to_id, slots_b, dists_b)
+            with trace.span("index.assemble"):
+                return assemble_arrays(self.slot_to_id, slots_b, dists_b)
 
     # ----- pipelined serving -----
     #
@@ -523,10 +526,11 @@ class FlatIndex:
         # readers overlap: the lazy mirror sync mutates _dev/_dirty on the
         # READ path, so the first reader after a mutation does the sync
         # under _sync_mu while the rest re-check and proceed
-        if self._dev_version != self._version:
-            with self._sync_mu:
-                if self._dev_version != self._version:
-                    self._sync()
+        with trace.span("search.mirror"):
+            if self._dev_version != self._version:
+                with self._sync_mu:
+                    if self._dev_version != self._version:
+                        self._sync()
         a = self._dev
         metric = int(self.metric)
         scan_sq = a.get("scan_sq", a["sq_norms"])
@@ -542,21 +546,23 @@ class FlatIndex:
         if use_fused:
             # one launch covers the whole batch, whatever its size
             q_scale = None
-            if self.query_dtype == "int8":
-                q8, qsc = _quant8(queries)
-                q_up, q_scale = self._put(q8), self._put(qsc)
-            else:
-                q_up = self._put(
-                    queries,
-                    torch.float16 if self.query_dtype == "f16"
-                    else torch.float32,
+            with trace.span("search.upload"):
+                if self.query_dtype == "int8":
+                    q8, qsc = _quant8(queries)
+                    q_up, q_scale = self._put(q8), self._put(qsc)
+                else:
+                    q_up = self._put(
+                        queries,
+                        torch.float16 if self.query_dtype == "f16"
+                        else torch.float32,
+                    )
+            with trace.span("flat.scan"):
+                return flat_topk_fused(
+                    q_up, a["scan"], a["vectors"], a["valid"], metric, k,
+                    scan_sq, width=max(4 * k, 64),
+                    base_scale=a.get("scan_scale"), tps=self._checked_tps(),
+                    query_scale=q_scale,
                 )
-            return flat_topk_fused(
-                q_up, a["scan"], a["vectors"], a["valid"], metric, k,
-                scan_sq, width=max(4 * k, 64),
-                base_scale=a.get("scan_scale"), tps=self._checked_tps(),
-                query_scale=q_scale,
-            )
         # an int8 scan copy is only usable by the fused scan; elsewhere the
         # search takes the plain scan of the exact matrix
         rerank = "scan" in a and a["scan"].dtype != torch.int8
@@ -564,32 +570,36 @@ class FlatIndex:
             torch.float16 if rerank and self.query_dtype == "f16"
             else torch.float32
         )
-        q_all = self._put(queries, q_dtype)
-        outs = []
-        for start in range(0, q_all.shape[0], self.search_batch_size):
-            chunk = q_all[start : start + self.search_batch_size]
-            if rerank:
-                outs.append(flat_topk_rerank(
-                    chunk, a["scan"], a["vectors"], a["valid"], metric, k,
-                    scan_sq, width=max(4 * k, 32),
-                ))
-            else:
-                outs.append(flat_topk(
-                    chunk, a["vectors"], a["valid"], metric, k, a["sq_norms"],
-                ))
-        if len(outs) == 1:
-            return outs[0]
-        # concatenated at SUBMIT time, so a pipelined collect is only the
-        # copy to the host
-        return (torch.cat([d for d, _ in outs]),
-                torch.cat([s for _, s in outs]))
+        with trace.span("search.upload"):
+            q_all = self._put(queries, q_dtype)
+        with trace.span("flat.scan"):
+            outs = []
+            for start in range(0, q_all.shape[0], self.search_batch_size):
+                chunk = q_all[start : start + self.search_batch_size]
+                if rerank:
+                    outs.append(flat_topk_rerank(
+                        chunk, a["scan"], a["vectors"], a["valid"], metric, k,
+                        scan_sq, width=max(4 * k, 32),
+                    ))
+                else:
+                    outs.append(flat_topk(
+                        chunk, a["vectors"], a["valid"], metric, k,
+                        a["sq_norms"],
+                    ))
+            if len(outs) == 1:
+                return outs[0]
+            # concatenated at SUBMIT time, so a pipelined collect is only
+            # the copy to the host
+            return (torch.cat([d for d, _ in outs]),
+                    torch.cat([s for _, s in outs]))
 
     @staticmethod
     def _device_collect(payload):
         """Fetch a _device_submit result: (slots [B, k] i64, dists f32)."""
         d, s = payload
-        return (s.cpu().numpy().astype(np.int64),
-                d.cpu().numpy().astype(np.float32, copy=False))
+        with trace.span("search.collect"):
+            s, d = s.cpu().numpy(), d.cpu().numpy()
+        return s.astype(np.int64), d.astype(np.float32, copy=False)
 
     # ----- state export/import (restore without rebuild) -----
 

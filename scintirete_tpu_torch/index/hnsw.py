@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from scintirete_tpu_torch.errors import ErrorCode, ScintireteError, dimension_mismatch
+from scintirete_tpu_torch.observability import trace
 from scintirete_tpu_torch.types import DistanceMetric, HNSWParams, SearchParams
 from scintirete_tpu_torch.utils.rwlock import RWLock
 from scintirete_tpu_torch.index import host_algo
@@ -349,11 +350,12 @@ class HNSWIndex:
         from scintirete_tpu_torch.index.results import assemble_results
 
         queries = self._check_queries(queries)
-        with self._rw.read():
+        with self._rw.read(span="index.lock"):
             if self.store.live == 0:
                 return [[] for _ in range(queries.shape[0])]
             slots_b, dists_b = self._search_slots(queries, params)
-            return assemble_results(self.slot_to_id, slots_b, dists_b)
+            with trace.span("index.assemble"):
+                return assemble_results(self.slot_to_id, slots_b, dists_b)
 
     def search_batch_arrays(
         self, queries: np.ndarray, params: SearchParams
@@ -363,13 +365,14 @@ class HNSWIndex:
         from scintirete_tpu_torch.index.results import assemble_arrays
 
         queries = self._check_queries(queries)
-        with self._rw.read():
+        with self._rw.read(span="index.lock"):
             if self.store.live == 0:
                 b = queries.shape[0]
                 return (np.zeros((b, 0), np.uint64),
                         np.zeros((b, 0), np.float32))
             slots_b, dists_b = self._search_slots(queries, params)
-            return assemble_arrays(self.slot_to_id, slots_b, dists_b)
+            with trace.span("index.assemble"):
+                return assemble_arrays(self.slot_to_id, slots_b, dists_b)
 
     def search_submit(self, queries: np.ndarray, params: SearchParams):
         """Run a batched search leaving its results on the device; pair

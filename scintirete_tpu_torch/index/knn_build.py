@@ -58,12 +58,11 @@ What the port leaves out of the JAX module, and why:
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from scintirete_tpu_torch.index.store import GraphStore
+from scintirete_tpu_torch.observability import trace
 from scintirete_tpu_torch.ops.distance import (
     dist_from_dots,
     distance_np,
@@ -851,7 +850,10 @@ def build(store: GraphStore, vectors: np.ndarray, device,
     `scan_cache` (caller-owned, see `append_batch`) is re-seeded with the
     build's scan base gathered into slot order, so the next append scans
     it without re-uploading the corpus. `stats` (a dict) gets the phases'
-    seconds (`upper_s`, `layer0_s`, `refine_s`), the seq build's
+    seconds from their tracer spans (`upper_s`: every `build.upper`, the
+    seq mode's sequential build and each upper layer's linking;
+    `layer0_s`: `build.layer0` less the `build.refine` inside it;
+    `refine_s`), the seq build's
     counts, and, when a refinement ran, layer 0's adjacency before it
     (`unrefined0` [n, m0], rows and ids in slot space)."""
     if upper_mode not in ("knn", "seq"):
@@ -881,51 +883,53 @@ def build(store: GraphStore, vectors: np.ndarray, device,
     stats.update(upper_s=0.0, layer0_s=0.0, refine_s=0.0)
     stats.pop("unrefined0", None)
     if max_level >= 1 and upper_mode == "seq":
-        t0 = time.perf_counter()
-        base_lvls = levels[order].astype(np.int64)
-        seed = _scan_form(
-            vectors[order[: min(_UPPER_SEED, n)]], metric
-        )
-        upper_adj = _build_upper_sequential(
-            ctx, base_lvls, store.m, seed, stats,
-        )
-        stats["upper_s"] = time.perf_counter() - t0
+        with trace.timed("build.upper") as phase:
+            base_lvls = levels[order].astype(np.int64)
+            seed = _scan_form(
+                vectors[order[: min(_UPPER_SEED, n)]], metric
+            )
+            upper_adj = _build_upper_sequential(
+                ctx, base_lvls, store.m, seed, stats,
+            )
+        stats["upper_s"] = phase.seconds
 
     for l in range(max_level + 1):
-        t0 = time.perf_counter()
-        nm = int(np.count_nonzero(levels >= l))
-        max_deg = store.m0 if l == 0 else store.m
-        heuristic = heuristic0 if l == 0 else True
-        members = order[:nm]  # member slots of this layer, base order
-        if l >= 1 and l in upper_adj:
-            adj = upper_adj[l]
-        elif nm <= 1:
-            adj = np.full((nm, max_deg), -1, np.int32)
-        elif nm <= HOST_LAYER_MAX:
-            n_cand = KNN_CANDIDATES if l == 0 else min(KNN_CANDIDATES, 4 * store.m)
-            adj = _build_layer_host(
-                vectors[members], metric, max_deg, n_cand, heuristic,
-            )
-        else:
-            adj = _layer_adj(ctx, nm, max_deg, heuristic)
-            if l == 0 and refine_rounds > 0:
-                unrefined = np.empty((n, max_deg), np.int32)
-                unrefined[members] = _to_slots(adj, members)
-                stats["unrefined0"] = unrefined
-                t1 = time.perf_counter()
-                adj = _refine_layer0(ctx, adj, nm, max_deg, heuristic,
-                                     refine_rounds)
-                stats["refine_s"] = time.perf_counter() - t1
-        mapped = _to_slots(adj, members)
+        with trace.timed("build.layer0" if l == 0 else "build.upper") as phase:
+            nm = int(np.count_nonzero(levels >= l))
+            max_deg = store.m0 if l == 0 else store.m
+            heuristic = heuristic0 if l == 0 else True
+            members = order[:nm]  # member slots of this layer, base order
+            if l >= 1 and l in upper_adj:
+                adj = upper_adj[l]
+            elif nm <= 1:
+                adj = np.full((nm, max_deg), -1, np.int32)
+            elif nm <= HOST_LAYER_MAX:
+                n_cand = (KNN_CANDIDATES if l == 0
+                          else min(KNN_CANDIDATES, 4 * store.m))
+                adj = _build_layer_host(
+                    vectors[members], metric, max_deg, n_cand, heuristic,
+                )
+            else:
+                adj = _layer_adj(ctx, nm, max_deg, heuristic)
+                if l == 0 and refine_rounds > 0:
+                    unrefined = np.empty((n, max_deg), np.int32)
+                    unrefined[members] = _to_slots(adj, members)
+                    stats["unrefined0"] = unrefined
+                    with trace.timed("build.refine") as refine:
+                        adj = _refine_layer0(ctx, adj, nm, max_deg, heuristic,
+                                             refine_rounds)
+                    stats["refine_s"] = refine.seconds
+            mapped = _to_slots(adj, members)
+            if l == 0:
+                store.neighbors0[members] = mapped
+            else:
+                ls = store.layers[l - 1]
+                rows = ls.row_of[members]
+                ls.nbrs[rows] = mapped[:, : store.m]
         if l == 0:
-            store.neighbors0[members] = mapped
-            stats["layer0_s"] = time.perf_counter() - t0 - stats["refine_s"]
+            stats["layer0_s"] = phase.seconds - stats["refine_s"]
         else:
-            ls = store.layers[l - 1]
-            rows = ls.row_of[members]
-            ls.nbrs[rows] = mapped[:, : store.m]
-            if upper_mode == "knn":
-                stats["upper_s"] += time.perf_counter() - t0
+            stats["upper_s"] += phase.seconds
 
     store.max_layer = max_level
     store.entry_slot = int(order[0]) if n else -1

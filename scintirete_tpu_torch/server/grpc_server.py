@@ -9,6 +9,11 @@ ser/de. Error mapping follows the reference (reference: grpc/helpers.go:17-38
 — not-found -> NOT_FOUND, exists -> ALREADY_EXISTS, bad params ->
 INVALID_ARGUMENT, auth -> UNAUTHENTICATED/PERMISSION_DENIED, rate limit ->
 RESOURCE_EXHAUSTED, else INTERNAL).
+
+With the tracer on (`observability/trace.py`), each call opens a request
+at decode: the `rpc.decode` span (on gRPC's polling thread, which
+deserializes every request) and the handler's and encoder's spans (on the
+worker thread) share its id.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from concurrent import futures
 import grpc
 
 from scintirete_tpu_torch.errors import ErrorCode, ScintireteError
+from scintirete_tpu_torch.observability import trace
 from scintirete_tpu_torch.proto import scintirete_pb2 as pb
 from scintirete_tpu_torch.server.service import RPC_METHODS, RPC_TYPES, ScintireteService
 
@@ -73,21 +79,36 @@ class GrpcServer:
         req_cls, _ = RPC_TYPES[method]
         fn = getattr(self.service, method)
 
-        def handler(request, context):
+        def decode(raw: bytes):
+            rid = trace.new_request()
+            with trace.span("rpc.decode", request=rid):
+                return req_cls.FromString(raw), rid
+
+        def handler(decoded, context):
+            request, rid = decoded
+            # the request stays set for the encoder, which clears it
+            trace.set_request(rid)
             try:
                 return fn(request)
             except ScintireteError as exc:
+                trace.set_request(None)
                 context.abort(grpc_status_for(exc), exc.message)
             except Exception as exc:  # pragma: no cover - defensive
+                trace.set_request(None)
                 self.service.logger.error(
                     "unhandled RPC error", method=method, error=repr(exc)
                 )
                 context.abort(grpc.StatusCode.INTERNAL, str(exc))
 
+        def encode(msg) -> bytes:
+            try:
+                with trace.span("rpc.encode"):
+                    return msg.SerializeToString()
+            finally:
+                trace.set_request(None)
+
         return grpc.unary_unary_rpc_method_handler(
-            handler,
-            request_deserializer=req_cls.FromString,
-            response_serializer=lambda msg: msg.SerializeToString(),
+            handler, request_deserializer=decode, response_serializer=encode,
         )
 
     def start(self) -> None:

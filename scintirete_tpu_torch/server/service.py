@@ -38,6 +38,7 @@ from scintirete_tpu_torch.engine import Engine
 from scintirete_tpu_torch.errors import ErrorCode, ScintireteError
 from scintirete_tpu_torch.observability.audit import AuditLogger, hash_user_id
 from scintirete_tpu_torch.observability.logger import StructuredLogger
+from scintirete_tpu_torch.observability import trace
 from scintirete_tpu_torch.observability.metrics import MetricsRegistry
 from scintirete_tpu_torch.ops import _ext
 from scintirete_tpu_torch.persistence import PersistenceManager
@@ -181,14 +182,16 @@ class ScintireteService:
 
     # ----- shared helpers -----
 
-    def _begin(self, method: str, auth: pb.AuthInfo) -> tuple[float, str]:
-        self.auth.authenticate(auth.password if auth else "")
-        user = hash_user_id(auth.password if auth else "")
-        self.rate_limiter.allow(user)
-        return time.time(), user
+    def _begin(self, method: str, auth: pb.AuthInfo) -> str:
+        with trace.span("service.auth"):
+            self.auth.authenticate(auth.password if auth else "")
+            user = hash_user_id(auth.password if auth else "")
+            self.rate_limiter.allow(user)
+        return user
 
-    def _finish(self, method: str, t0: float, error: bool = False) -> None:
-        self.metrics.observe_request(method, time.time() - t0, error)
+    def _finish(self, method: str, call, error: bool = False) -> None:
+        # the call's span is on the monotonic clock, which never steps
+        self.metrics.observe_request(method, call.elapsed_s(), error)
 
     def _audit_op(self, op: str, user: str, db: str = "", col: str = "", **meta):
         self.audit.log_operation(
@@ -196,21 +199,22 @@ class ScintireteService:
         )
 
     def _instrumented(self, method: str, auth, fn):
-        try:
-            t0, user = self._begin(method, auth)
-        except ScintireteError:
-            self.metrics.observe_request(method, 0.0, True)
-            self.audit.log_security(
-                method, user_id="anonymous", metadata={"reason": "auth_failed"}
-            )
-            raise
-        try:
-            result = fn(user)
-        except Exception:
-            self._finish(method, t0, error=True)
-            raise
-        self._finish(method, t0)
-        return result
+        with trace.timed("service.call", attr=method) as call:
+            try:
+                user = self._begin(method, auth)
+            except ScintireteError:
+                self.metrics.observe_request(method, 0.0, True)
+                self.audit.log_security(
+                    method, user_id="anonymous", metadata={"reason": "auth_failed"}
+                )
+                raise
+            try:
+                result = fn(user)
+            except Exception:
+                self._finish(method, call, error=True)
+                raise
+            self._finish(method, call)
+            return result
 
     @staticmethod
     def _require(cond: bool, message: str) -> None:
@@ -490,12 +494,13 @@ class ScintireteService:
             self.metrics.vector_operations_total.inc(
                 operation="search", collection=req.collection_name
             )
-            return pb.BatchSearchResponse(
-                ids_packed=np.ascontiguousarray(ids).tobytes(),
-                distances_packed=np.ascontiguousarray(dists).tobytes(),
-                num_queries=int(ids.shape[0]),
-                top_k=int(ids.shape[1]),
-            )
+            with trace.span("service.pack"):
+                return pb.BatchSearchResponse(
+                    ids_packed=np.ascontiguousarray(ids).tobytes(),
+                    distances_packed=np.ascontiguousarray(dists).tobytes(),
+                    num_queries=int(ids.shape[0]),
+                    top_k=int(ids.shape[1]),
+                )
 
         return self._instrumented("BatchSearch", req.auth, op)
 

@@ -29,6 +29,9 @@ from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
+from typing import Optional
+
+from scintirete_tpu_torch.observability import trace
 
 
 class RWLock:
@@ -40,8 +43,10 @@ class RWLock:
         self._writer = False
 
     @contextmanager
-    def read(self):
-        with self._cond:
+    def read(self, span: Optional[str] = None):
+        """The read side; `span` names a tracer span around its
+        acquisition (the wait for an active writer included)."""
+        with trace.span(span) if span else trace.NO_SPAN, self._cond:
             while self._writer:
                 self._cond.wait()
             self._readers += 1

@@ -845,3 +845,54 @@ def test_sharded_index_on_the_card(dev):
     back = ShardedHNSWIndex.import_graph_state(idx.export_graph_state(),
                                                devices=devices)
     assert back.search_batch(q, sp) == res
+
+
+def test_beam_sync_spans_share_the_device_clock(dev):
+    """The tracer's spans and the profiler's device events on one clock:
+    a `beam.sync` waits for its copy to the host, so no such span ends
+    more than 20 us before the end of the last device operation that
+    started before it ended. Prints the median and the least of that
+    lead (sync end less that operation's end)."""
+    from torch.autograd import DeviceType
+
+    from scintirete_tpu_torch import DistanceMetric, HNSWParams, SearchParams
+    from scintirete_tpu_torch.index.hnsw import HNSWIndex
+    from scintirete_tpu_torch.observability import trace
+
+    rng = np.random.default_rng(4)
+    base = rng.standard_normal((20000, 64)).astype(np.float32)
+    idx = HNSWIndex(64, HNSWParams(m=16, seed=3), DistanceMetric.COSINE,
+                    device=dev)
+    idx.bulk_insert(list(range(1, 20001)), base)
+    q = base[:256] + 0.01
+    params = SearchParams(top_k=10, ef_search=50)
+    idx.search_batch_arrays(q, params)  # the mirror and the kernels warm
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    trace.enable()
+    try:
+        idx.search_batch_arrays(q, params)
+        torch.cuda.synchronize()
+    finally:
+        trace.disable()
+        prof.stop()
+    drained = trace.drain()
+    syncs = [s for s in drained.spans if s.name == "beam.sync"]
+    ops = sorted(((ev.start_ns() - drained.offset_ns,
+                   ev.start_ns() + ev.duration_ns() - drained.offset_ns)
+                  for ev in prof.profiler.kineto_results.events()
+                  if ev.device_type() == DeviceType.CUDA))
+    assert syncs and ops
+    starts = np.array([a for a, _ in ops])
+    leads = []
+    for s in syncs:
+        last = int(np.searchsorted(starts, s.end_ns)) - 1
+        assert last >= 0
+        leads.append(s.end_ns - ops[last][1])
+    leads = np.array(leads) / 1e3
+    print(f"beam.sync end less its last device op's end: {len(leads)} "
+          f"syncs, median {np.median(leads):.1f} us, least "
+          f"{leads.min():.1f} us")
+    assert leads.min() >= -20.0
