@@ -32,7 +32,9 @@ adjacency is CONCATENATED into one table (`up_nbrs_cat` [sum cap_l, M])
 with a flat node->row map (`up_rows_flat` [L * cap], values pre-offset
 into the table), so every loop is layer-agnostic. Each JAX
 `lax.while_loop` is a Python loop with one host check of its predicate
-per step.
+per step, but the search's layer-0 beam: it checks once every
+`BEAM_BLOCK` steps and, on a card, replays its step as a captured CUDA
+graph (`BeamGraphs`); the build's beams stay eager, one check a step.
 
 `DeviceGraph` mirrors the arrays of a host `GraphStore` (vectors, squared
 norms, tombstones, layer-0 adjacency, the concatenated upper tables, the
@@ -79,6 +81,17 @@ SEARCH_EXPAND = 4
 BUILD_EXPAND = 8
 # upper bound on the pivot sample (262,144 x 128 f32 pivots = 134 MB)
 PIVOT_CAP = 262144
+# layer-0 steps of a search between two host checks: up to BEAM_BLOCK - 1
+# steps past convergence (no-ops) against one sync per block. On an H100
+# 2, 4 and 8 served the same rate; 8 spent more device time on no-ops,
+# 2 left the card idler (PERF.md §6)
+BEAM_BLOCK = 4
+# captured instances of one graphed step shape, busy or idle: one per
+# sub-batch in flight, and sub-batches on one device replay on one stream
+# in turn, so more instances than serving threads searching at once buy
+# nothing; each holds its buffers and its captured step's memory (tens
+# of MB at 256 queries)
+GRAPH_CAP = 4
 
 
 # ---------------------------------------------------------------------------
@@ -113,17 +126,25 @@ def _finalize(d, metric):
     return d
 
 
+class _DistTo:
+    """`dist_to(slots [B, K] >= 0) -> [B, K]` comparison-form distances of
+    the queries to those rows. A graphed beam reads its fields to build
+    the same function over buffers of its own."""
+
+    def __init__(self, q32, q_sq, q_norm, vectors, sq_norms, metric):
+        self.q32, self.q_sq, self.q_norm = q32, q_sq, q_norm
+        self.vectors, self.sq_norms, self.metric = vectors, sq_norms, metric
+
+    def __call__(self, slots):
+        return _cmp_dist(self.q32, self.q_sq, self.q_norm,
+                         self.vectors[slots], self.sq_norms[slots],
+                         self.metric)
+
+
 def _make_dist_fn(queries, vectors, sq_norms, metric):
     q32 = queries.float()
     q_sq = (q32 * q32).sum(dim=-1)
-    q_norm = torch.sqrt(q_sq)
-
-    def dist_to(slots):  # [B, K] slots (>=0) -> [B, K] cmp distances
-        return _cmp_dist(
-            q32, q_sq, q_norm, vectors[slots], sq_norms[slots], metric
-        )
-
-    return dist_to
+    return _DistTo(q32, q_sq, torch.sqrt(q_sq), vectors, sq_norms, metric)
 
 
 # ---------------------------------------------------------------------------
@@ -240,11 +261,77 @@ def _beam_converged(cand_s, cand_d, expanded):
     return ~((best_unexp <= worst) & torch.isfinite(best_unexp))
 
 
+class _Layer0Beam:
+    """The layer-0 beam's lists (cand_s, cand_d, expanded [B, ef]), which
+    queries are still active, and `status` [2] i64: [any query active,
+    steps taken]. `step()` runs one beam step under `active`, then the
+    convergence test of the new lists gives the next `active`; the step
+    counts only if some query was active when it began.
+
+    After a step a list is sorted by (distance, packed slot), with -1 /
+    inf / unexpanded padding, so a step in which no query is active adds
+    only (-1, inf) entries, re-sorts and leaves it bit for bit as it was:
+    steps past convergence change nothing. `in_place` (a captured step)
+    writes the new state into the same tensors instead of rebinding."""
+
+    def __init__(self, dist_to, neighbors0, deleted, cand_s, cand_d, expand,
+                 in_place=False):
+        self.dist_to, self.neighbors0, self.deleted = dist_to, neighbors0, deleted
+        self.expand, self.in_place = expand, in_place
+        self.cand_s, self.cand_d = cand_s, cand_d
+        self.expanded = torch.zeros_like(cand_s, dtype=torch.bool)
+        self.active = ~_beam_converged(cand_s, cand_d, self.expanded)
+        self.status = torch.stack([self.active.any().long(),
+                                   cand_s.new_zeros(())])
+
+    def step(self):
+        new = _beam_step(
+            self.dist_to, self.deleted, self.cand_s, self.cand_d,
+            self.expanded, rows_of_slots=lambda slots: slots,
+            nbr_lookup=lambda rows: self.neighbors0[rows],
+            active=self.active, expand=self.expand,
+        )
+        active = ~_beam_converged(*new)
+        status = torch.stack([active.any().long(),
+                              self.status[1] + self.status[0]])
+        state = (*new, active, status)
+        if self.in_place:
+            for dst, src in zip((self.cand_s, self.cand_d, self.expanded,
+                                 self.active, self.status), state):
+                dst.copy_(src)
+        else:
+            (self.cand_s, self.cand_d, self.expanded, self.active,
+             self.status) = state
+
+
+def _run_blocks(replay, beam, max_steps, block):
+    """Replays the step `block` times between host checks of
+    `beam.status` (one read of [any active, steps] a block, the
+    `beam.sync` span) until no query is active or `max_steps` replays
+    ran; the last block is cut to fit. Returns the steps taken, which is
+    what one check before every step would have counted."""
+    done = steps = 0
+    while done < max_steps:
+        n = min(block, max_steps - done)
+        for _ in range(n):
+            with trace.span("beam.step"):
+                replay()
+        done += n
+        with trace.span("beam.sync"):
+            more, steps = beam.status.tolist()
+        if not more:
+            break
+    return steps
+
+
 def _ef_beam_layer0(dist_to, neighbors0, deleted, entry_slots, entry_dists,
-                    ef, max_steps, expand=SEARCH_EXPAND):
+                    ef, max_steps, expand=SEARCH_EXPAND, block=1,
+                    graphs=None):
     """Layer-0 ef-beam. Entries [B, E]; returns sorted (slots, dists,
-    steps). The JAX lax.while_loop becomes a Python loop with one host
-    check of the convergence predicate per step."""
+    steps). The JAX lax.while_loop becomes a Python loop that checks the
+    convergence predicate on the host once every `block` steps. With
+    `graphs` (a search on a card) each step is a replay of a captured
+    CUDA graph, else a plain call of the eager step."""
     B, E = entry_slots.shape
     dev = entry_slots.device
     expand = min(expand, ef)
@@ -261,22 +348,147 @@ def _ef_beam_layer0(dist_to, neighbors0, deleted, entry_slots, entry_dists,
         cand_s, cand_d = entry_slots[:, :ef], entry_dists[:, :ef]
     cand_d, order = torch.sort(cand_d, dim=1, stable=True)
     cand_s = cand_s.gather(1, order)
-    expanded = torch.zeros((B, ef), dtype=torch.bool, device=dev)
+    if graphs is not None:
+        return graphs.run(dist_to, neighbors0, deleted, cand_s, cand_d,
+                          expand, max_steps, block)
+    beam = _Layer0Beam(dist_to, neighbors0, deleted, cand_s, cand_d, expand)
+    steps = _run_blocks(beam.step, beam, max_steps, block)
+    return (torch.where(torch.isinf(beam.cand_d), -1, beam.cand_s),
+            beam.cand_d, steps)
 
-    steps = 0
-    while steps < max_steps:
-        active = ~_beam_converged(cand_s, cand_d, expanded)
-        if not _host_any(active):
-            break
-        with trace.span("beam.step"):
-            cand_s, cand_d, expanded = _beam_step(
-                dist_to, deleted, cand_s, cand_d, expanded,
-                rows_of_slots=lambda slots: slots,
-                nbr_lookup=lambda rows: neighbors0[rows],
-                active=active, expand=expand,
-            )
-        steps += 1
-    return torch.where(torch.isinf(cand_d), -1, cand_s), cand_d, steps
+
+# one capture at a time in the process (torch's rule for graph captures),
+# whichever index's pool captures
+_CAPTURE_MU = threading.Lock()
+
+
+class _GraphedBeam:
+    """One layer-0 step captured as a CUDA graph over buffers of `rows`
+    queries: the queries and their norms (which its `dist_to` reads), the
+    lists, `active` and `status` (see _Layer0Beam). Rows past a
+    sub-batch's own are padding: query 0, list (-1, inf), converged from
+    the start."""
+
+    def __init__(self, dist_to, neighbors0, deleted, rows, ef, expand):
+        q = dist_to.q32
+        self.dist_to = _DistTo(
+            q.new_zeros((rows, q.shape[1])), q.new_zeros(rows),
+            q.new_zeros(rows), dist_to.vectors, dist_to.sq_norms,
+            dist_to.metric,
+        )
+        self.beam = _Layer0Beam(
+            self.dist_to, neighbors0, deleted,
+            torch.full((rows, ef), -1, dtype=torch.int64, device=q.device),
+            torch.full((rows, ef), _INF, device=q.device), expand,
+            in_place=True,
+        )
+        # loads the step's kernels before the capture; on the padding the
+        # step is a no-op
+        self.beam.step()
+        self.graph = torch.cuda.CUDAGraph()
+        with _CAPTURE_MU, torch.cuda.graph(
+            self.graph, stream=torch.cuda.Stream(),
+            capture_error_mode="thread_local",
+        ):
+            self.beam.step()
+
+    def load(self, dist_to, cand_s, cand_d):
+        """A sub-batch's queries and entry lists into the buffers."""
+        B, d, b = cand_s.shape[0], self.dist_to, self.beam
+        for dst, src, pad in ((d.q32, dist_to.q32, 0.0),
+                              (d.q_sq, dist_to.q_sq, 0.0),
+                              (d.q_norm, dist_to.q_norm, 0.0),
+                              (b.cand_s, cand_s, -1), (b.cand_d, cand_d, _INF)):
+            dst[:B].copy_(src)
+            dst[B:].fill_(pad)
+        b.expanded.zero_()
+        b.active.copy_(~_beam_converged(b.cand_s, b.cand_d, b.expanded))
+        b.status[0].copy_(b.active.any())  # (item assignment would sync)
+        b.status[1].zero_()
+
+
+class BeamGraphs:
+    """The search's layer-0 beam step as replayed CUDA graphs, for one
+    DeviceIndex (each shard's index has its own).
+
+    A graph bakes in its buffers' shapes and the mirror tensors it reads,
+    so instances are keyed by the mirror's generation (DeviceGraph), the
+    sub-batch padded to a power of two no larger than `max_batch`, ef,
+    expand, D, the metric and the neighbour degree. A sub-batch checks one
+    instance out for its whole beam, so two serving threads never share
+    buffers; a new one is captured (under the pool's lock) only when
+    every instance of its key is busy, up to GRAPH_CAP, past which the
+    sub-batch waits for one to come back. A new generation drops the old
+    instances. Replays run on the caller's current stream, so the
+    mirror's updates, the upload, the entry scan and the collect keep
+    their order."""
+
+    def __init__(self, mirror: DeviceGraph, max_batch: int, on_capture):
+        self.mirror = mirror
+        self.max_batch = max_batch
+        self._on_capture = on_capture
+        self._mu = threading.Condition()
+        self._idle: dict[tuple, list[_GraphedBeam]] = {}
+        self._held: dict[tuple, int] = {}  # instances of a key, idle or busy
+        self._generation = -1
+
+    def rows(self, B: int) -> int:
+        return min(1 << (B - 1).bit_length(), max(self.max_batch, B))
+
+    def run(self, dist_to, neighbors0, deleted, cand_s, cand_d, expand,
+            max_steps, block):
+        """_ef_beam_layer0's loop on a graphed step: returns (slots,
+        dists, steps) of the B queries of cand_s / cand_d [B, ef]."""
+        B, ef = cand_s.shape
+        rows = self.rows(B)
+        key = (self.mirror.generation, rows, ef, expand,
+               dist_to.q32.shape[1], dist_to.metric, neighbors0.shape[1])
+        with torch.cuda.device(cand_s.device):
+            inst = self._checkout(key, lambda: _GraphedBeam(
+                dist_to, neighbors0, deleted, rows, ef, expand))
+            try:
+                inst.load(dist_to, cand_s, cand_d)
+                steps = _run_blocks(inst.graph.replay, inst.beam, max_steps,
+                                    block)
+                b = inst.beam
+                return (torch.where(torch.isinf(b.cand_d[:B]), -1,
+                                    b.cand_s[:B]),
+                        b.cand_d[:B].clone(), steps)
+            finally:
+                self._checkin(key, inst)
+
+    def _checkout(self, key, capture) -> _GraphedBeam:
+        with self._mu:
+            if key[0] > self._generation:  # the mirror replaced a tensor
+                for k, idle in self._idle.items():
+                    if idle:
+                        self._drop(k, len(idle))
+                self._idle.clear()
+                self._generation = key[0]
+            while True:
+                idle = self._idle.setdefault(key, [])
+                if idle:
+                    return idle.pop()
+                if self._held.get(key, 0) < GRAPH_CAP:
+                    with trace.span("beam.capture"):
+                        inst = capture()
+                    self._held[key] = self._held.get(key, 0) + 1
+                    self._on_capture()
+                    return inst
+                self._mu.wait()
+
+    def _checkin(self, key, inst: _GraphedBeam) -> None:
+        with self._mu:
+            if key[0] == self._generation:
+                self._idle.setdefault(key, []).append(inst)
+            else:
+                self._drop(key, 1)
+            self._mu.notify_all()
+
+    def _drop(self, key, n: int) -> None:
+        self._held[key] -= n
+        if not self._held[key]:
+            del self._held[key]
 
 
 def _fused_beam_descent_lists(dist_to, row_of, nbr_table, deleted, cand_s,
@@ -401,6 +613,7 @@ def _search_kernel_pivot(
     k: int,
     max_steps: int,
     expand: int = SEARCH_EXPAND,
+    graphs: BeamGraphs | None = None,
 ):
     """Pivot entry (one fused scan against R sampled pivots replaces the
     upper-layer greedy descent), then the layer-0 beam. Returns
@@ -419,7 +632,7 @@ def _search_kernel_pivot(
 
     cand_s, cand_d, steps = _ef_beam_layer0(
         dist_to, neighbors0, deleted, cur[:, None], cur_d[:, None], ef,
-        max_steps, expand=expand,
+        max_steps, expand=expand, block=BEAM_BLOCK, graphs=graphs,
     )
     return (*_finish(cand_s, cand_d, k, metric), steps)
 
@@ -463,6 +676,7 @@ def _search_kernel(
     max_steps: int,
     expand: int = SEARCH_EXPAND,
     ef_upper: int = 1,
+    graphs: BeamGraphs | None = None,
 ):
     """The pure top-down walk: from the entry point through every upper
     layer (greedy at ef_upper <= 1, else the beam descent), then the
@@ -485,7 +699,7 @@ def _search_kernel(
     )
     cand_s, cand_d, steps = _ef_beam_layer0(
         dist_to, neighbors0, deleted, ent_s, ent_d, ef, max_steps,
-        expand=expand,
+        expand=expand, block=BEAM_BLOCK, graphs=graphs,
     )
     return (*_finish(cand_s, cand_d, k, metric), (up_steps, steps))
 
@@ -536,6 +750,7 @@ def _search_kernel_mid(
     expand: int = SEARCH_EXPAND,
     ef_upper: int = 1,
     scan_rows: int = 0,
+    graphs: BeamGraphs | None = None,
 ):
     """Mid-layer entry: an exact scan of the members of layer mid_level
     (the lowest upper layer that fits descent_mid_cap), its best ef_upper
@@ -561,7 +776,7 @@ def _search_kernel_mid(
     )
     cand_s, cand_d, steps = _ef_beam_layer0(
         dist_to, neighbors0, deleted, ent_s, ent_d, ef, max_steps,
-        expand=expand,
+        expand=expand, block=BEAM_BLOCK, graphs=graphs,
     )
     return (*_finish(cand_s, cand_d, k, metric), (up_steps, steps))
 
@@ -744,6 +959,10 @@ class DeviceGraph:
         self._mid_watermark: int | None = None
         self._offsets: list[int] = []
         self.arrays: dict[str, torch.Tensor] = {}
+        # moves whenever a tensor the graphed layer-0 step reads (vectors,
+        # sq_norms, deleted, neighbors0) is replaced, not scattered into:
+        # at each full upload
+        self.generation = 0
         # concurrent READERS may both hit the lazy sync; the mirror mutation
         # (and the store's take_dirty bookkeeping) must be serialized
         self._sync_mu = threading.Lock()
@@ -836,6 +1055,7 @@ class DeviceGraph:
         }
 
     def _full_upload(self, store: GraphStore) -> None:
+        self.generation += 1
         vecs = store.vectors
         self.arrays = {
             "vectors": self._put(vecs, self.dtype),
@@ -913,8 +1133,9 @@ class DeviceGraph:
 class DeviceIndex:
     """Batched search (pivot, mid-layer or top-down entry) and the
     build-descent dispatch over a DeviceGraph mirror. `steps` counts, since
-    the caller last cleared it, the sub-batches searched and the serial
-    loop steps they took above and at layer 0."""
+    the caller last cleared it, the sub-batches searched, the serial loop
+    steps they took above and at layer 0, the layer-0 steps that ran as
+    graph replays (on a card: all of them) and the graphs captured."""
 
     ENTRY_MODES = ("pivot", "descent")
 
@@ -922,9 +1143,16 @@ class DeviceIndex:
                  max_batch: int = 256):
         self.graph = DeviceGraph(device, dtype)
         self.max_batch = max_batch
-        self.steps = {"batches": 0, "upper": 0, "layer0": 0}
+        self.steps = {"batches": 0, "upper": 0, "layer0": 0,
+                      "graph_steps": 0, "graph_captures": 0}
         # serving threads search at once: their counts must not be lost
         self._steps_mu = threading.Lock()
+        self._graphs = (BeamGraphs(self.graph, max_batch, self._count_capture)
+                        if self.graph.device.type == "cuda" else None)
+
+    def _count_capture(self) -> None:
+        with self._steps_mu:
+            self.steps["graph_captures"] += 1
 
     @property
     def device(self) -> torch.device:
@@ -979,6 +1207,7 @@ class DeviceIndex:
                     d, s, l0 = _search_kernel_pivot(
                         *common, a["pivots"], a["pivot_vecs"], a["pivot_sq"],
                         metric=metric, ef=ef, k=k, max_steps=max_steps,
+                        graphs=self._graphs,
                     )
                     up = 0
                 elif use_mid:
@@ -987,18 +1216,21 @@ class DeviceIndex:
                         a["mid_slots"], a["mid_vecs"], a["mid_sq"],
                         self.graph.mid_level, metric=metric, ef=ef, k=k,
                         max_steps=max_steps, ef_upper=ef_upper,
-                        scan_rows=self.max_batch,
+                        scan_rows=self.max_batch, graphs=self._graphs,
                     )
                 else:
                     d, s, (up, l0) = _search_kernel(
                         *common, a["up_nbrs_cat"], a["up_rows_flat"], entry,
                         entry_level, metric=metric, ef=ef, k=k,
                         max_steps=max_steps, ef_upper=ef_upper,
+                        graphs=self._graphs,
                     )
             with self._steps_mu:
                 self.steps["batches"] += 1
                 self.steps["upper"] += up
                 self.steps["layer0"] += l0
+                if self._graphs is not None:
+                    self.steps["graph_steps"] += l0
             outs.append((d, s))
         return outs
 

@@ -18,7 +18,10 @@ with every row masked and with overflowed norms, the packed and the
 unpacked int8 scans at ragged B, padded and deep D and over 2^20 rows
 (split and unsplit walks for the packed ones), equal scores in every tile
 of a lane, and a small build, append, search, flat collection and
-two-shard index on the card.
+two-shard index on the card. The layer-0 beam replayed as CUDA graphs
+is held to the eager step, bit for bit: across sub-batch sizes, ef, the
+metrics, the entry modes and tombstones, after the mirror grows, and
+with two searching threads beside a capture.
 """
 
 import numpy as np
@@ -896,3 +899,177 @@ def test_beam_sync_spans_share_the_device_clock(dev):
           f"syncs, median {np.median(leads):.1f} us, least "
           f"{leads.min():.1f} us")
     assert leads.min() >= -20.0
+
+
+# (entry_mode, descent_mid, ef_upper): pivot, mid-layer entry, pure walk
+GRAPH_MODES = {"pivot": ("pivot", True, 1), "mid": ("descent", True, 1),
+               "descent": ("descent", False, 4)}
+
+
+def _graph_index(dev, metric, n=20000, dim=48):
+    from scintirete_tpu_torch import DistanceMetric, HNSWParams
+    from scintirete_tpu_torch.index.hnsw import HNSWIndex
+
+    rng = np.random.default_rng(int(metric) + 10)
+    base = rng.standard_normal((n, dim)).astype(np.float32)
+    idx = HNSWIndex(dim, HNSWParams(m=16, ef_construction=100, seed=3),
+                    DistanceMetric(metric), device=dev)
+    idx.bulk_insert(list(range(1, n + 1)), base)
+    return idx, base, rng
+
+
+def _graphed_and_eager(idx, queries, k, ef, mode):
+    """One search with the index's graph pool and one with the eager step:
+    (slots, dists, layer-0 steps, graphed steps) of each."""
+    entry_mode, mid, ef_upper = GRAPH_MODES[mode]
+    dev_idx = idx._get_device()
+    out = []
+    for graphs in (dev_idx._graphs, None):
+        pool, dev_idx._graphs = dev_idx._graphs, graphs
+        try:
+            before = dict(dev_idx.steps)
+            s, d = dev_idx.search(idx.store, queries, k, ef,
+                                  entry_mode=entry_mode, ef_upper=ef_upper,
+                                  descent_mid=mid)
+            after = dev_idx.steps
+            out.append((s, d, after["layer0"] - before["layer0"],
+                        after["graph_steps"] - before["graph_steps"]))
+        finally:
+            dev_idx._graphs = pool
+    return out
+
+
+def _assert_graphed_is_eager(idx, queries, k, ef, mode):
+    (gs, gd, gl, gg), (es, ed, el, eg) = _graphed_and_eager(
+        idx, queries, k, ef, mode)
+    where = f"B {len(queries)}, ef {ef}, {mode}"
+    assert np.array_equal(gs, es), where
+    assert np.array_equal(gd.view(np.uint32), ed.view(np.uint32)), where
+    assert gl == el > 0 and gg == gl and eg == 0, (where, gl, el, gg, eg)
+
+
+@pytest.mark.parametrize("mode", list(GRAPH_MODES))
+@pytest.mark.parametrize("metric", [1, 2, 3])
+def test_graphed_beam_answers_equal_eager(dev, metric, mode):
+    """The layer-0 beam replayed as CUDA graphs answers as the eager step
+    does, ids and distance bits, in as many counted steps: B from 1 to a
+    whole sub-batch (padded rows), ef 10 / 50 / 128, the three entry
+    modes, before and after tombstones."""
+    idx, base, rng = _graph_index(dev, metric)
+    queries = base[:256] + 0.1 * rng.standard_normal((256, 48)).astype(
+        np.float32)
+    for deleted in (False, True):
+        if deleted:
+            for vid in rng.choice(np.arange(1, 20001), 1000, replace=False):
+                idx.delete(int(vid))
+        for B in (1, 7, 64, 200, 256):
+            for ef in (10, 50, 128):
+                _assert_graphed_is_eager(idx, queries[:B], 10, ef, mode)
+    pool = idx._get_device()._graphs
+    assert max(pool._held.values()) <= 1  # one thread: one instance a key
+
+
+def test_graphed_beam_recaptures_when_the_mirror_grows(dev):
+    """Appends past the mirror's capacity replace the tensors the graphs
+    read: the generation moves, the step is captured anew and answers
+    still equal the eager step's."""
+    idx, base, rng = _graph_index(dev, 2)
+    dev_idx = idx._get_device()
+    queries = base[:64] + 0.1 * rng.standard_normal((64, 48)).astype(
+        np.float32)
+    _assert_graphed_is_eager(idx, queries, 10, 50, "pivot")
+    gen, captures = dev_idx.graph.generation, dev_idx.steps["graph_captures"]
+    cap = idx.store.cap
+    more = rng.standard_normal((cap, 48)).astype(np.float32)
+    idx.bulk_insert(list(range(20001, 20001 + cap)), more)
+    assert idx.store.cap > cap
+    _assert_graphed_is_eager(idx, np.concatenate([queries, more[:64]]), 10,
+                             50, "pivot")
+    assert dev_idx.graph.generation > gen
+    assert dev_idx.steps["graph_captures"] > captures
+
+
+def test_graphed_beam_under_two_threads_and_a_capture(dev):
+    """Two threads search sub-batches of 256 while a third shape is
+    captured: every answer equals the eager step's and no key holds more
+    than GRAPH_CAP instances."""
+    import threading
+
+    from scintirete_tpu_torch.index import device as device_mod
+
+    idx, base, rng = _graph_index(dev, 2)
+    dev_idx = idx._get_device()
+    sets = [base[i * 256:(i + 1) * 256] + 0.1 * rng.standard_normal(
+        (256, 48)).astype(np.float32) for i in range(4)]
+    small = sets[0][:3]
+    want = {}
+    pool, dev_idx._graphs = dev_idx._graphs, None
+    try:
+        for i, q in enumerate(sets + [small]):
+            want[i] = dev_idx.search(idx.store, q, 10, 50)
+    finally:
+        dev_idx._graphs = pool
+    dev_idx.search(idx.store, sets[0], 10, 50)  # the 256-row key, warm
+    errors = []
+
+    def searcher(j):
+        try:
+            for r in range(6):
+                i = (j + r) % 4
+                s, d = dev_idx.search(idx.store, sets[i], 10, 50)
+                if not (np.array_equal(s, want[i][0])
+                        and np.array_equal(d.view(np.uint32),
+                                           want[i][1].view(np.uint32))):
+                    errors.append((j, r))
+        except Exception as exc:  # reported below
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=searcher, args=(j,)) for j in (0, 1)]
+    for th in threads:
+        th.start()
+    s, d = dev_idx.search(idx.store, small, 10, 50)  # a new key: captures
+    for th in threads:
+        th.join(timeout=300)
+        assert not th.is_alive()
+    assert not errors, errors
+    assert np.array_equal(s, want[4][0])
+    assert np.array_equal(d.view(np.uint32), want[4][1].view(np.uint32))
+    held = pool._held
+    assert len(held) == 2 and max(held.values()) <= device_mod.GRAPH_CAP
+    assert dev_idx.steps["graph_captures"] == sum(held.values())
+
+
+def test_profiler_sees_each_kernel_of_a_replay(dev):
+    """torch.profiler records a replayed step's kernels one by one, as it
+    does the eager step's: device operations a replay against a step.
+    Prints both (the benchmark's device metrics read these events)."""
+    from torch.autograd import DeviceType
+
+    idx, base, rng = _graph_index(dev, 2)
+    dev_idx = idx._get_device()
+    queries = base[:256] + 0.1 * rng.standard_normal((256, 48)).astype(
+        np.float32)
+    counts = []
+    for graphs in (dev_idx._graphs, None):
+        pool, dev_idx._graphs = dev_idx._graphs, graphs
+        try:
+            dev_idx.search(idx.store, queries, 10, 50)  # warm, captured
+            torch.cuda.synchronize()
+            prof = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            before = dev_idx.steps["layer0"]
+            with prof:
+                dev_idx.search(idx.store, queries, 10, 50)
+                torch.cuda.synchronize()
+            steps = dev_idx.steps["layer0"] - before
+            ops = sum(ev.device_type() == DeviceType.CUDA
+                      for ev in prof.profiler.kineto_results.events())
+            counts.append((ops, steps))
+        finally:
+            dev_idx._graphs = pool
+    (g_ops, g_steps), (e_ops, e_steps) = counts
+    print(f"device operations in one sub-batch of 256: graphed {g_ops}, "
+          f"eager {e_ops}, over {g_steps} steps (graphed runs up to "
+          f"BEAM_BLOCK - 1 more replays)")
+    assert g_steps == e_steps > 0
+    assert g_ops >= 0.9 * e_ops

@@ -320,3 +320,180 @@ def test_beam_lists_stay_sorted_and_monotone(data, jax_state, beam,
         if worst is not None:
             assert np.all(d[:, -1] <= worst), "an ef-th distance rose"
         worst = d[:, -1]
+
+
+def _tie_graph(metric, tombstones):
+    """A small layer-0 graph whose 400 rows repeat 25 vectors (exact
+    distance ties across slots), with -1 holes in the adjacency and, with
+    `tombstones`, a fifth of the rows deleted."""
+    import torch
+
+    from scintirete_tpu_torch.index import device as dmod
+
+    rng = np.random.default_rng(int(metric))
+    vecs = torch.from_numpy(
+        rng.standard_normal((25, 8)).astype(np.float32)[rng.integers(0, 25, 400)])
+    nbrs = torch.from_numpy(rng.integers(0, 400, (400, 12)))
+    nbrs[torch.from_numpy(rng.random((400, 12)) < 0.2)] = -1
+    deleted = torch.from_numpy(rng.random(400) < (0.2 if tombstones else 0.0))
+    q = torch.from_numpy(rng.standard_normal((16, 8)).astype(np.float32))
+    dist_to = dmod._make_dist_fn(q, vecs, (vecs * vecs).sum(-1), int(metric))
+    return dist_to, nbrs, deleted
+
+
+@pytest.mark.parametrize("case", ["tombstones", "padding", "ties"])
+@pytest.mark.parametrize("metric", METRICS)
+def test_beam_step_with_no_query_active_is_a_fixed_point(metric, case):
+    """_beam_step under an all-false `active` returns the lists it was
+    given, bit for bit, at every step of a beam: a graphed search may run
+    steps past its convergence (the rest of a block) without changing an
+    answer. With -1 padding (ef wider than the entries reach), with
+    tombstones, and with equal distances on different slots."""
+    import torch
+
+    from scintirete_tpu_torch.index import device as dmod
+
+    dist_to, nbrs, deleted = _tie_graph(metric, case == "tombstones")
+    ef = 48 if case == "padding" else 16
+    entry = torch.arange(16)[:, None] * 7
+    entry = torch.where(deleted[entry], -1, entry)
+    entry_d = torch.where(entry >= 0, dist_to(entry.clamp(min=0)), np.inf)
+    beam = dmod._Layer0Beam(
+        dist_to, nbrs, deleted,
+        torch.cat([entry, torch.full((16, ef - 1), -1)], 1),
+        torch.cat([entry_d, torch.full((16, ef - 1), np.inf)], 1), 4)
+    none = torch.zeros(16, dtype=torch.bool)
+    seen_pad = seen_tie = False
+    for _ in range(40):
+        beam.step()
+        state = (beam.cand_s, beam.cand_d, beam.expanded)
+        out = dmod._beam_step(dist_to, deleted, *state,
+                              rows_of_slots=lambda s: s,
+                              nbr_lookup=lambda r: nbrs[r], active=none,
+                              expand=4)
+        for got, want in zip(out, state):
+            assert got.dtype == want.dtype and torch.equal(got, want)
+        s, d = beam.cand_s, beam.cand_d
+        seen_pad |= bool((s < 0).any())
+        same = (d[:, 1:] == d[:, :-1]) & torch.isfinite(d[:, 1:])
+        seen_tie |= bool((same & (s[:, 1:] != s[:, :-1])).any())
+        assert not bool(deleted[s.clamp(min=0)][s >= 0].any())
+    assert not bool(beam.active.any()), "the beam did not converge"
+    if case == "padding":
+        assert seen_pad
+    if case == "ties":
+        assert seen_tie
+
+
+def _check_every_step(dist_to, neighbors0, deleted, cand_s, cand_d,
+                      max_steps, expand):
+    """The layer-0 loop with one host check before every step."""
+    import torch
+
+    from scintirete_tpu_torch.index import device as dmod
+
+    expanded = torch.zeros_like(cand_s, dtype=torch.bool)
+    steps = 0
+    while steps < max_steps:
+        active = ~dmod._beam_converged(cand_s, cand_d, expanded)
+        if not bool(active.any()):
+            break
+        cand_s, cand_d, expanded = dmod._beam_step(
+            dist_to, deleted, cand_s, cand_d, expanded,
+            rows_of_slots=lambda s: s, nbr_lookup=lambda r: neighbors0[r],
+            active=active, expand=expand)
+        steps += 1
+    return torch.where(torch.isinf(cand_d), -1, cand_s), cand_d, steps
+
+
+@pytest.mark.parametrize("max_steps", [EF + 64, 5])
+@pytest.mark.parametrize("block", [1, 3, 8])
+def test_block_loop_matches_a_check_every_step(data, jax_state, block,
+                                               max_steps):
+    """_ef_beam_layer0 checking the host once every `block` steps (the
+    eager step, as on the CPU) gives the slots, distances and step count
+    of one check per step, also when max_steps cuts the beam short."""
+    import torch
+
+    from scintirete_tpu_torch.index import device as dmod
+
+    _, queries = data
+    port = HNSWIndex.import_graph_state(jax_state, device="cpu")
+    dev = port._get_device()
+    dev.sync(port.store)
+    a = dev.graph.arrays
+    q = torch.from_numpy(queries)
+    dist_to = dmod._make_dist_fn(q, a["vectors"], a["sq_norms"],
+                                 int(port.store.metric))
+    B = q.shape[0]
+    entry, _ = dev._entry_info(port.store)
+    cur = torch.full((B, 1), entry, dtype=torch.int64)
+    got = dmod._ef_beam_layer0(dist_to, a["neighbors0"], a["deleted"], cur,
+                               dist_to(cur), EF, max_steps, block=block)
+    want = _check_every_step(
+        dist_to, a["neighbors0"], a["deleted"],
+        torch.cat([cur, torch.full((B, EF - 1), -1)], 1),
+        torch.cat([dist_to(cur), torch.full((B, EF - 1), np.inf)], 1),
+        max_steps, dmod.SEARCH_EXPAND)
+    assert got[2] == want[2] and (want[2] == 5) == (max_steps == 5)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_beam_graph_pool_shares_no_instance_and_keeps_its_cap():
+    """BeamGraphs' bookkeeping, with a stand-in for the capture: under 16
+    threads no instance is out to two sub-batches at once, no key holds
+    more than GRAPH_CAP instances, every instance was counted as a
+    capture, and a new mirror generation drops the old instances."""
+    import sys
+    import threading
+    import time
+    import types
+
+    from scintirete_tpu_torch.index import device as dmod
+
+    mirror = types.SimpleNamespace(generation=1)
+    captures = []
+    pool = dmod.BeamGraphs(mirror, 256, lambda: captures.append(1))
+    assert [pool.rows(b) for b in (1, 7, 64, 200, 256)] == [1, 8, 64, 256, 256]
+    assert dmod.BeamGraphs(mirror, 200, None).rows(150) == 200
+    out, errors, mu = set(), [], threading.Lock()
+
+    def worker(j):
+        try:
+            for r in range(200):
+                key = (1, 256 if (j + r) % 3 else 8)
+                inst = pool._checkout(key, object)
+                with mu:
+                    if inst in out:
+                        errors.append("shared")
+                    out.add(inst)
+                time.sleep(0)  # the sub-batch's beam
+                with mu:
+                    out.discard(inst)
+                pool._checkin(key, inst)
+        except Exception as exc:  # reported below
+            errors.append(repr(exc))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(j,))
+                   for j in range(16)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=60)
+            assert not th.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors, errors[:3]
+    assert set(pool._held) == {(1, 256), (1, 8)}
+    assert max(pool._held.values()) <= dmod.GRAPH_CAP
+    assert len(captures) == sum(pool._held.values())
+    # a busy instance of the old generation is dropped when it comes back
+    busy = pool._checkout((1, 8), object)
+    mirror.generation = 2
+    pool._checkout((2, 8), object)
+    assert set(pool._held) == {(1, 8), (2, 8)} and pool._held[(1, 8)] == 1
+    pool._checkin((1, 8), busy)
+    assert set(pool._held) == {(2, 8)}
