@@ -20,7 +20,10 @@ enters only by beating the current worst, and the worst only improves),
 so a displaced candidate can never re-enter; duplicates are removed by a
 slot-major sort each step. Deleted nodes never enter the list. Distances
 are comparison form inside the loop (squared L2, true cosine, negated
-dot) and finalized once at the end.
+dot) and finalized once at the end; under L2 the beam's ef candidates are
+first scored again from their differences and the k nearest of them kept
+(`_finish`), since the comparison form's |q|^2 + |x|^2 - 2 q.x cancels
+the norms (the JAX package finalizes the comparison form itself).
 
 Build descent (`_build_descent_kernel`, the insert path against a frozen
 graph): a greedy descent above each new vector's level, then ONE
@@ -81,6 +84,14 @@ SEARCH_EXPAND = 4
 BUILD_EXPAND = 8
 # upper bound on the pivot sample (262,144 x 128 f32 pivots = 134 MB)
 PIVOT_CAP = 262144
+# at most this many published rows per entry pivot (the JAX package: 16).
+# A query enters layer 0 at its nearest pivot, and the beam walks only
+# the layer-0 component it entered: where the data fall into tight
+# clusters, each cluster is a component of its own, and a cluster of c
+# rows that holds no pivot (~e^(-c / ROWS_PER_PIVOT) of them) has its
+# queries answered from another cluster. At 16, a million rows in 10,000
+# clusters left 0.13% of the queries so (PERF.md, gist1m-hnsw)
+ROWS_PER_PIVOT = 8
 # layer-0 steps of a search between two host checks: up to BEAM_BLOCK - 1
 # steps past convergence (no-ops) against one sync per block. On an H100
 # 2, 4 and 8 served the same rate; 8 spent more device time on no-ops,
@@ -139,6 +150,13 @@ class _DistTo:
         return _cmp_dist(self.q32, self.q_sq, self.q_norm,
                          self.vectors[slots], self.sq_norms[slots],
                          self.metric)
+
+    def squared_l2(self, slots):
+        """Squared L2 to the rows [B, K], summed from the differences: no
+        cancellation of the norms, which at norms of ~4,000 (960-wide
+        rows) leaves the comparison form ~1e-2 off in d^2."""
+        diff = self.vectors[slots].float() - self.q32[:, None, :]
+        return (diff * diff).sum(dim=-1)
 
 
 def _make_dist_fn(queries, vectors, sq_norms, metric):
@@ -545,7 +563,7 @@ def _layer_beams(dist_to, deleted, cur, cur_d, cur_lvl, row_of, nbr_table,
     b_idx = torch.arange(B, device=dev)
     keep = torch.arange(ef_upper, device=dev)[None, :] < m
     steps = 0
-    while steps < max_steps and bool((cur_lvl >= 1).any()):
+    while steps < max_steps and _host_any(cur_lvl >= 1):
         in_layers = cur_lvl >= 1
         converged = _beam_converged(cand_s, cand_d, expanded)
         transition = in_layers & converged
@@ -584,7 +602,16 @@ def _layer_beams(dist_to, deleted, cur, cur_d, cur_lvl, row_of, nbr_table,
     return out_s, out_d, cand_s, cand_d, steps
 
 
-def _finish(cand_s, cand_d, k, metric):
+def _finish(dist_to, cand_s, cand_d, k, metric):
+    """The k nearest of the beam's lists [B, ef], finalized. Under L2 the
+    candidates are ranked again by `dist_to.squared_l2` first, so the
+    answers and their distances carry no cancellation error (an entry's
+    distance from the pivot scan included)."""
+    if metric == _L2:
+        cand_d = torch.where(cand_s >= 0,
+                             dist_to.squared_l2(cand_s.clamp(min=0)), _INF)
+        cand_d, order = torch.sort(cand_d, dim=1, stable=True)
+        cand_s = cand_s.gather(1, order)
     out_d = _finalize(cand_d[:, :k], metric)
     out_s = cand_s[:, :k]
     return torch.where(out_s < 0, _INF, out_d), out_s
@@ -634,7 +661,7 @@ def _search_kernel_pivot(
         dist_to, neighbors0, deleted, cur[:, None], cur_d[:, None], ef,
         max_steps, expand=expand, block=BEAM_BLOCK, graphs=graphs,
     )
-    return (*_finish(cand_s, cand_d, k, metric), steps)
+    return (*_finish(dist_to, cand_s, cand_d, k, metric), steps)
 
 
 # an upper-layer walk stops after this many steps (the JAX package's bound)
@@ -701,7 +728,7 @@ def _search_kernel(
         dist_to, neighbors0, deleted, ent_s, ent_d, ef, max_steps,
         expand=expand, block=BEAM_BLOCK, graphs=graphs,
     )
-    return (*_finish(cand_s, cand_d, k, metric), (up_steps, steps))
+    return (*_finish(dist_to, cand_s, cand_d, k, metric), (up_steps, steps))
 
 
 def _mid_scan(q_in, mid_vecs, mid_sq, mid_del, metric, ef_upper, rows):
@@ -778,7 +805,7 @@ def _search_kernel_mid(
         dist_to, neighbors0, deleted, ent_s, ent_d, ef, max_steps,
         expand=expand, block=BEAM_BLOCK, graphs=graphs,
     )
-    return (*_finish(cand_s, cand_d, k, metric), (up_steps, steps))
+    return (*_finish(dist_to, cand_s, cand_d, k, metric), (up_steps, steps))
 
 
 # ---------------------------------------------------------------------------
@@ -876,12 +903,13 @@ def build_cat_tables(store: GraphStore):
 def pivot_sample_host(store: GraphStore) -> dict[str, Any]:
     """Entry pivots: a strided sample of PUBLISHED slots (the linked
     watermark, not the allocation count: an unlinked pivot would be a
-    dead-end entry). R targets ~16 points per pivot, as a power of two in
-    [64, PIVOT_CAP]. Returns pivots [R] i32, pivot_vecs [R, D] f32,
-    pivot_sq [R] f32, n_pub int."""
+    dead-end entry). R targets at most ROWS_PER_PIVOT points per pivot, as
+    a power of two in [64, PIVOT_CAP]. Returns pivots [R] i32, pivot_vecs
+    [R, D] f32, pivot_sq [R] f32, n_pub int."""
     n_pub = max(store.linked_count, 1)
     vecs = store.vectors
-    R = max(64, min(1 << int(np.ceil(np.log2(n_pub / 16 + 1))), PIVOT_CAP))
+    R = max(64, min(1 << int(np.ceil(np.log2(n_pub / ROWS_PER_PIVOT + 1))),
+                    PIVOT_CAP))
     stride = max(n_pub // R, 1)
     pivots = np.arange(0, n_pub, stride, dtype=np.int32)[:R]
     if len(pivots) < R:
@@ -1133,9 +1161,13 @@ class DeviceGraph:
 class DeviceIndex:
     """Batched search (pivot, mid-layer or top-down entry) and the
     build-descent dispatch over a DeviceGraph mirror. `steps` counts, since
-    the caller last cleared it, the sub-batches searched, the serial loop
-    steps they took above and at layer 0, the layer-0 steps that ran as
-    graph replays (on a card: all of them) and the graphs captured."""
+    the caller last cleared it, the sub-batches and the queries searched,
+    the serial loop steps they took above and at layer 0, the layer-0
+    steps that ran as graph replays (on a card: all of them), the graphs
+    captured, and `dist_rows`: the rows whose distance the layer-0 beam
+    evaluated, each step's shape (the graph's padded rows where graphed)
+    times its expand x degree candidates, padding included, since the
+    device gathers those rows too."""
 
     ENTRY_MODES = ("pivot", "descent")
 
@@ -1143,8 +1175,8 @@ class DeviceIndex:
                  max_batch: int = 256):
         self.graph = DeviceGraph(device, dtype)
         self.max_batch = max_batch
-        self.steps = {"batches": 0, "upper": 0, "layer0": 0,
-                      "graph_steps": 0, "graph_captures": 0}
+        self.steps = {"batches": 0, "queries": 0, "upper": 0, "layer0": 0,
+                      "graph_steps": 0, "graph_captures": 0, "dist_rows": 0}
         # serving threads search at once: their counts must not be lost
         self._steps_mu = threading.Lock()
         self._graphs = (BeamGraphs(self.graph, max_batch, self._count_capture)
@@ -1197,12 +1229,16 @@ class DeviceIndex:
             q_all = torch.from_numpy(np.ascontiguousarray(queries, np.float32))
             q_all = q_all.to(self.device)
         use_mid = descent_mid and "mid_slots" in a and self.graph.mid_level >= 1
+        # candidates a layer-0 step scores per row of its shape
+        per_row = min(SEARCH_EXPAND, ef) * a["neighbors0"].shape[1]
         outs = []
         for start in range(0, q_all.shape[0], self.max_batch):
             q = q_all[start : start + self.max_batch]
+            B = q.shape[0]
+            rows = self._graphs.rows(B) if self._graphs is not None else B
             common = (q, a["vectors"], a["sq_norms"], a["deleted"],
                       a["neighbors0"])
-            with trace.span("beam.subbatch", n=q.shape[0]):
+            with trace.span("beam.subbatch", n=B):
                 if entry_mode == "pivot":
                     d, s, l0 = _search_kernel_pivot(
                         *common, a["pivots"], a["pivot_vecs"], a["pivot_sq"],
@@ -1227,8 +1263,10 @@ class DeviceIndex:
                     )
             with self._steps_mu:
                 self.steps["batches"] += 1
+                self.steps["queries"] += B
                 self.steps["upper"] += up
                 self.steps["layer0"] += l0
+                self.steps["dist_rows"] += l0 * rows * per_row
                 if self._graphs is not None:
                     self.steps["graph_steps"] += l0
             outs.append((d, s))

@@ -21,7 +21,9 @@ of a lane, and a small build, append, search, flat collection and
 two-shard index on the card. The layer-0 beam replayed as CUDA graphs
 is held to the eager step, bit for bit: across sub-batch sizes, ef, the
 metrics, the entry modes and tombstones, after the mirror grows, and
-with two searching threads beside a capture.
+with two searching threads beside a capture. At GIST-1M's width (D = 960,
+L2): the pivot scan at B 256 over 65,536 and 131,072 pivots, the lane
+scan at B 2,048 over 65,536 rows, and the graphed beam against the eager.
 """
 
 import numpy as np
@@ -1073,3 +1075,59 @@ def test_profiler_sees_each_kernel_of_a_replay(dev):
           f"BEAM_BLOCK - 1 more replays)")
     assert g_steps == e_steps > 0
     assert g_ops >= 0.9 * e_ops
+
+
+# GIST-1M's width (the gist1m-hnsw configuration): D = 960 streams the
+# queries through the kernels' rings beside the pivot and base chunks
+
+
+@pytest.mark.parametrize("R", [65536, 131072])
+def test_pivot_kernel_at_gist_shape(dev, R):
+    """L2 at B 256 and D 960 over the pivot counts of a million rows: the
+    JAX package's 16 rows a pivot (65,536) and the port's 8 (131,072)."""
+    _hold_pivot(*_pivot_inputs(dev, 1, 256, R, 960, R + 960), 1)
+
+
+def test_lane_kernel_at_gist_shape(dev):
+    """knn_lane_topc, L2 at B 2,048, N 65,536, D 960: the lane arrays and
+    the top-32 against the plain lane scan's."""
+    from scintirete_tpu_torch.ops.lane_scan import (
+        _top_c,
+        knn_lane_topc,
+        lane_scan,
+        lane_scan_plain,
+    )
+
+    B, N, D, c = 2048, 65536, 960, 32
+    g = torch.Generator(device=dev).manual_seed(B + N + D)
+    base32 = torch.randn(N, D, generator=g, device=dev)
+    base = base32.to(torch.bfloat16)
+    bsq = (base32 * base32).sum(1)
+    q = base32[:B]
+    si = torch.arange(B, dtype=torch.int32, device=dev)
+    qb = q.to(torch.bfloat16).contiguous()
+    before = lane_scan.launches
+    k_lanes = lane_scan(qb, si, base, bsq, N, 1, N // 1024)
+    p_lanes = lane_scan_plain(qb, si, base, bsq, N, 1, N // 1024)
+    kd, ki = knn_lane_topc(q, si, base, bsq, N, 1, c, N // 1024)
+    pd, pi = _top_c(p_lanes, q, 1, c, None)
+    torch.cuda.synchronize()
+    assert lane_scan.launches == before + 2
+    for k, p in list(zip(k_lanes, p_lanes)) + [(kd, pd), (ki, pi)]:
+        if k.dtype == torch.float32:
+            fin = torch.isfinite(p)
+            assert torch.equal(fin, torch.isfinite(k))
+            torch.testing.assert_close(k[fin], p[fin], rtol=1e-5, atol=1e-4)
+        else:
+            assert (k == p).float().mean() > 0.999
+    assert not bool((ki == si[:, None]).any())
+
+
+def test_graphed_beam_at_gist_width(dev):
+    """The L2 layer-0 beam over 960-wide rows, replayed as a CUDA graph,
+    answers as the eager step does, ids and distance bits."""
+    idx, base, rng = _graph_index(dev, 1, n=20000, dim=960)
+    queries = base[:256] + 0.1 * rng.standard_normal((256, 960)).astype(
+        np.float32)
+    for B in (1, 100, 256):
+        _assert_graphed_is_eager(idx, queries[:B], 10, 50, "pivot")
