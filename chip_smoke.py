@@ -14,7 +14,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
     failing if any of these is 0, and IDP4A (a __dp4a body) in the flat
     scan's and HMMA (TF32 or half products) in the pivot scan's, failing
     if either is not 0;
- 3. holds each of the seven kernels against its plain torch version on the
+ 3. holds each of the seven scan kernels against its plain torch version on the
     card, at the shapes of the main path: pivot_entry_scan (B=256 and 1,
     D=128, R=65,536, a ragged R and 262,144, 3 metrics, deleted pivots,
     all deleted; timed through its wrapper and as its C entry alone, and
@@ -42,14 +42,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
     kernel, plain version and the library product inside (torch.matmul on
     bf16, torch._int_mm on int8; CUDA events), and the kernel's bound (the
     larger of its operations over the card's peak and its bytes over
-    3.35 TB/s);
+    3.35 TB/s); and the layer-0 beam step's kernel (beam_step.cu) against
+    the torch step, bit for bit, from one mid-beam state at B=256, ef=50,
+    degree 32, expand 4 over a random graph of 1,000,000 integer-valued
+    rows, at D=100 cosine and D=960 L2, timed and bounded by the rows it
+    read;
  4. drives the main path at full size: Engine -> create_database ->
     create_collection (cosine HNSW, m=16, ef_construction=200,
     ef_search=12, seed=42, heuristic) -> Collection.insert of a 1,000,000 x
     128 corpus of the clustered workload-v2 generator -> search_batch in
     batches of 1024 (k=10); checks recall@10 >= 0.95 against the port's
-    brute-force top-k on the card, that both build/search kernels were
-    launched by this run, then deletes 1% of the ids and checks none of
+    brute-force top-k on the card, that both build/search kernels and the
+    beam step's kernel were launched by this run, then deletes 1% of the ids and checks none of
     them comes back; then replays the build's candidate-scan schedule
     alone (the same level draw, every device-built layer, the same
     (query rows, prefix tiles) of each launch) and prints its scan seconds
@@ -128,8 +132,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
     collection created over gRPC and fed the 1M corpus in InsertVectors of
     4,096 (vec/s with the AOF log), 4 BatchSearch calls of 1,024 and 256
     single Search calls (recall@10 >= 0.99, distances within 1e-5 of
-    exact, singles equal to BatchSearch); the launches of pivot_entry_scan, knn_lane_topc_masked and
-    lane_topk_scan_packed_int8 in all this must be above 0. Then Save over
+    exact, singles equal to BatchSearch); the launches of pivot_entry_scan, knn_lane_topc_masked,
+    lane_topk_scan_packed_int8 and beam_step in all this must be above 0. Then Save over
     gRPC, the in-process server stops, and `python -m
     scintirete_tpu_torch.cli.server_main -config <toml>` starts on the same
     directory as a subprocess: 64 HNSW and 64 flat queries answer as
@@ -180,9 +184,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
     state re-shards it onto the card's one device (recall@10 >= 0.95).
     pivot_entry_scan, knn_lane_topc and knn_lane_topc_masked must each be
     launched by the phase; peak device memory is printed;
-12. prints the kernels' JSON line (seven entries; launches of the main
-    path, phase E, phase S, the durability phases and phase D), the card's
-    line, and last {"ok": true, "device": {...}}.
+12. prints the kernels' JSON line (eight entries; launches of the main
+    path, phase E, phase S, the durability phases and phase D; beam_step's
+    of the main path, E1 and D, each eager step and each graph replay),
+    the card's line, and last {"ok": true, "device": {...}}.
 
 On one H100 the whole run takes about 7-10 minutes of the 20 it may take,
 the durability phases about a minute of it, phase D about two, phase E
@@ -404,6 +409,95 @@ def check_pivot(dev, seed):
         f"at B=1 {extra['B=1']:.4f} ms, at R=262144 {extra['R=262144']:.4f} "
         f"ms; ids equal {worst_share:.6f} at worst")
     return worst_err, timing, bound
+
+
+BEAM_ROWS = 1_000_000  # the beam step's table: rows a step gathers from
+
+
+def check_beam_step(dev, seed):
+    """The layer-0 beam step's kernel (ops/beam_step.py) against the torch
+    step on the card, at the search's shape: B 256, ef 50, degree 32,
+    expand 4, over a random graph of a million integer-valued rows (every
+    dot exact, so the two must agree bit for bit), at D 100 cosine and D
+    960 L2. Both step from the same mid-beam state (after 4 steps from one
+    entry a query, every query still active), restored before each timed
+    step. The torch step is timed as a replay of its captured CUDA graph,
+    the way the search ran it before the kernel; each timed step is queued
+    behind a 1 ms device sleep, so the CUDA events time the device and not
+    the host's launch. Bound: the rows the step read (its status word) and
+    the neighbour ids of the expanded entries, at the memory's rate.
+    Returns (0.0, (kernel ms at D 100, plain ms, None), bound at D 100)
+    and logs both widths."""
+    import torch
+
+    from scintirete_tpu_torch.index import device as device_mod
+
+    B, ef, deg, expand = 256, 50, 32, 4
+    g = torch.Generator(device=dev).manual_seed(seed + 18)
+    out = {}
+    for D, metric in ((100, 2), (960, 1)):
+        vecs = torch.randint(-3, 4, (BEAM_ROWS, D), generator=g, device=dev,
+                             dtype=torch.int8).float()
+        sq = (vecs * vecs).sum(1)
+        nbrs = torch.randint(0, BEAM_ROWS, (BEAM_ROWS, deg), generator=g,
+                             device=dev)
+        deleted = torch.zeros(BEAM_ROWS, dtype=torch.bool, device=dev)
+        q = torch.randint(-3, 4, (B, D), generator=g, device=dev,
+                          dtype=torch.int8).float()
+        dist_to = device_mod._make_dist_fn(q, vecs, sq, metric)
+        ent = torch.randint(0, BEAM_ROWS, (B, 1), generator=g, device=dev)
+        cand_s = torch.cat([ent, ent.new_full((B, ef - 1), -1)], 1)
+        cand_d = torch.cat([dist_to(ent), torch.full((B, ef - 1), torch.inf,
+                                                     device=dev)], 1)
+        kernel, plain = (device_mod._Layer0Beam(
+            dist_to, nbrs, deleted, cand_s.clone(), cand_d.clone(), expand,
+            in_place=True) for _ in range(2))
+        plain.fused = False
+        for _ in range(4):
+            plain.step()
+        names = ("cand_s", "cand_d", "expanded", "active", "status")
+        mid = [getattr(plain, n).clone() for n in names]
+        if not bool(mid[3].all()):
+            fail(f"beam_step D={D}: a query converged within 4 steps")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+            plain.step()
+        times, rows = {}, 0
+        for which, beam, run in (("kernel", kernel, kernel.step),
+                                 ("plain", plain, graph.replay)):
+            ms = []
+            for rep in range(31):
+                for n, t in zip(names, mid):
+                    getattr(beam, n).copy_(t)
+                torch.cuda._sleep(2_000_000)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                run()
+                b.record()
+                b.synchronize()
+                if rep:  # the first is the warm-up
+                    ms.append(a.elapsed_time(b))
+            times[which] = float(np.median(ms))
+            rows = int(beam.status[2] - mid[4][2])
+        for n in names:
+            k, p = getattr(kernel, n), getattr(plain, n)
+            if n == "cand_d":
+                k, p = k.view(torch.int32), p.view(torch.int32)
+            if not torch.equal(k, p):
+                fail(f"beam_step D={D}: the kernel's {n} differs from the "
+                     f"torch step's")
+        bound = bound_ms(0.0, "f32", rows * D * 4 + B * expand * deg * 8)
+        log(f"beam_step B={B} ef={ef} degree={deg} expand={expand} D={D} "
+            f"metric={metric}: kernel {times['kernel']:.4f} ms, plain "
+            f"(graphed torch step) {times['plain']:.4f} ms, bound "
+            f"{bound[0]:.4f} ms ({rows} rows read, {bound[1]}); state equal "
+            f"bit for bit")
+        out[D] = (times, bound)
+        del vecs, sq, nbrs, kernel, plain, graph, dist_to
+        torch.cuda.empty_cache()
+    times, bound = out[100]
+    return 0.0, (times["kernel"], times["plain"], None), bound
 
 
 def compare_lanes(name, k_out, p_out):
@@ -965,6 +1059,7 @@ def run_main_path(dev, n, n_queries, seed):
         SearchParams,
     )
     from scintirete_tpu_torch.engine import Engine
+    from scintirete_tpu_torch.ops.beam_step import beam_step
     from scintirete_tpu_torch.ops.lane_scan import lane_scan
     from scintirete_tpu_torch.ops.pivot_scan import pivot_entry_scan
 
@@ -977,6 +1072,7 @@ def run_main_path(dev, n, n_queries, seed):
 
     pivot_entry_scan.launches = 0
     lane_scan.launches = 0
+    beam_step.launches = 0
     engine = Engine(device=dev)
     col = engine.create_database("smoke").create_collection(CollectionConfig(
         name="c", metric=DistanceMetric.COSINE, hnsw=hnsw_params(),
@@ -997,7 +1093,8 @@ def run_main_path(dev, n, n_queries, seed):
     search_s = time.perf_counter() - t0
     qps = n_queries / search_s
     launches = {"pivot_entry_scan": pivot_entry_scan.launches,
-                "knn_lane_topc": lane_scan.launches}
+                "knn_lane_topc": lane_scan.launches,
+                "beam_step": beam_step.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     for res in results:
         if len(res) != K:
@@ -2562,6 +2659,7 @@ def same_as_batch(name, out, ids_s, d_s, ids_b, d_b):
 def kernel_counters():
     """name -> the wrapper object whose `launches` counts its kernel."""
     from scintirete_tpu_torch.ops import packed_scan
+    from scintirete_tpu_torch.ops.beam_step import beam_step
     from scintirete_tpu_torch.ops.lane_scan import lane_scan, lane_scan_masked
     from scintirete_tpu_torch.ops.pivot_scan import pivot_entry_scan
 
@@ -2573,6 +2671,7 @@ def kernel_counters():
         "lane_topk_scan_packed": packed_scan.lane_topk_scan_packed,
         "lane_topk_scan_int8": packed_scan.lane_topk_scan_int8,
         "lane_topk_scan": packed_scan.lane_topk_scan,
+        "beam_step": beam_step,
     }
 
 
@@ -2990,7 +3089,7 @@ def serve(dev, card, data_dir, a_case, base, flat_case, centers, seed):
     out["phase_s"] = time.perf_counter() - t_phase
     print(json.dumps(out), flush=True)
     for name in ("pivot_entry_scan", "knn_lane_topc_masked",
-                 "lane_topk_scan_packed_int8"):
+                 "lane_topk_scan_packed_int8", "beam_step"):
         if launches[name] <= 0:
             fail(f"D: {name} was not launched by the server's path")
     return launches
@@ -3028,7 +3127,8 @@ def main() -> None:
                               ("flat_scan", "IGMMA", True),
                               ("flat_scan", "IDP4A", False),
                               ("pivot_scan", "HMMA", False),
-                              ("pivot_scan", "FFMA", True)):
+                              ("pivot_scan", "FFMA", True),
+                              ("beam_step", "FFMA", True)):
         count = sass_count(paths[lib], opcode)
         if count is None:
             log(f"{lib}: no cuobjdump in the toolkit, {opcode} count "
@@ -3050,6 +3150,7 @@ def main() -> None:
         "pivot_entry_scan": check_pivot(dev, args.seed),
         "knn_lane_topc": check_lane(dev, args.seed),
         "knn_lane_topc_masked": check_lane_masked(dev, args.seed),
+        "beam_step": check_beam_step(dev, args.seed),
     }
     for name, err in check_lane_depths(dev, args.seed).items():
         worst, timing, bound = checks[name]
@@ -3068,6 +3169,7 @@ def main() -> None:
     t_e = time.perf_counter()
     counters = kernel_counters()
     counters["pivot_entry_scan"].launches = 0
+    counters["beam_step"].launches = 0
     e_out = {"phase": "E: descent / mid entry, seq upper build, refine",
              "card": card,
              "E1": run_descent_modes(col, flat_case[0], flat_case[3],
@@ -3076,7 +3178,12 @@ def main() -> None:
     if e1_pivot <= 0:
         fail("E1: pivot_entry_scan was not launched")
     launches["pivot_entry_scan"] += e1_pivot
-    e_out["launches"] = {"pivot_entry_scan": e1_pivot, "knn_lane_topc": 0}
+    e1_beam = counters["beam_step"].launches
+    if e1_beam <= 0:
+        fail("E1: beam_step was not launched")
+    launches["beam_step"] += e1_beam
+    e_out["launches"] = {"pivot_entry_scan": e1_pivot, "knn_lane_topc": 0,
+                         "beam_step": e1_beam}
     e_s = time.perf_counter() - t_e
     launches["knn_lane_topc_masked"], everything, live = run_append(
         dev, col, base, valid, centers, rng
@@ -3136,12 +3243,18 @@ def main() -> None:
     }
     kernels = []
     for name, (err, ms, bound) in checks.items():
-        src, tpu = meta[name]
+        if name == "beam_step":  # no Pallas kernel: lax ops in the JAX step
+            src, replaces = "beam_step.cu", (
+                "none (scintirete_tpu/index/device.py:235 _beam_step, lax)")
+        else:
+            src, tpu = meta[name]
+            replaces = f"scintirete_tpu/ops/{tpu}"
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"scintirete_tpu_torch/csrc/{src}",
-            "replaces": f"scintirete_tpu/ops/{tpu}",
-            "launches": launches[name], "max_abs_err": err,
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": err,
             "ms": ms[0], "plain_ms": ms[1], "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": ms[2],
         })

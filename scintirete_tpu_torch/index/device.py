@@ -37,7 +37,9 @@ into the table), so every loop is layer-agnostic. Each JAX
 `lax.while_loop` is a Python loop with one host check of its predicate
 per step, but the search's layer-0 beam: it checks once every
 `BEAM_BLOCK` steps and, on a card, replays its step as a captured CUDA
-graph (`BeamGraphs`); the build's beams stay eager, one check a step.
+graph (`BeamGraphs`); the build's beams stay eager, one check a step. On
+a card the layer-0 step itself (search and append alike) is one launch of
+the beam-step kernel (`ops/beam_step.py`); the other beams are torch ops.
 
 `DeviceGraph` mirrors the arrays of a host `GraphStore` (vectors, squared
 norms, tombstones, layer-0 adjacency, the concatenated upper tables, the
@@ -66,6 +68,7 @@ import torch
 from scintirete_tpu_torch.types import DistanceMetric
 from scintirete_tpu_torch.index.store import GraphStore
 from scintirete_tpu_torch.observability import trace
+from scintirete_tpu_torch.ops import beam_step as fused_step
 from scintirete_tpu_torch.ops.pivot_scan import (
     pivot_distance_block,
     pivot_entry_scan,
@@ -216,11 +219,14 @@ def _flat_row_of(up_rows_flat, cap):
 
 
 def _beam_step(dist_to, deleted, cand_s, cand_d, expanded, rows_of_slots,
-               nbr_lookup, active, expand):
+               nbr_lookup, active, expand, scored=False):
     """One multi-expansion beam step (shared by the layer-0 and multi-layer
     beams). cand_s i64 / cand_d f32 / expanded bool, each [B, ef], sorted
     by distance. `rows_of_slots(slots [B, E]) -> rows`,
-    `nbr_lookup(rows) -> neighbor slots [B, E, deg]`."""
+    `nbr_lookup(rows) -> neighbor slots [B, E, deg]`. Returns the new
+    lists and, with `scored`, which of the [B, expand x deg] candidates it
+    scored: the live neighbours of the active queries' expanded entries,
+    the rows the step needs (the others are masked to +inf)."""
     B, ef = cand_s.shape
     unexp_d = torch.where(expanded | (cand_s < 0), _INF, cand_d)
     top_d, i_stars = stable_smallest(unexp_d, expand)  # lax.top_k's ties
@@ -269,7 +275,8 @@ def _beam_step(dist_to, deleted, cand_s, cand_d, expanded, rows_of_slots,
     sp = torch.where(dup, -1, sp)  # slot -1, unexpanded
     sd, o = torch.sort(sd, dim=1, stable=True)
     sd, sp = sd[:, :ef], sp.gather(1, o[:, :ef])
-    return sp >> 1, sd, (1 - (sp & 1)).bool()
+    new = (sp >> 1, sd, (1 - (sp & 1)).bool())
+    return (*new, ok) if scored else new
 
 
 def _beam_converged(cand_s, cand_d, expanded):
@@ -281,16 +288,23 @@ def _beam_converged(cand_s, cand_d, expanded):
 
 class _Layer0Beam:
     """The layer-0 beam's lists (cand_s, cand_d, expanded [B, ef]), which
-    queries are still active, and `status` [2] i64: [any query active,
-    steps taken]. `step()` runs one beam step under `active`, then the
-    convergence test of the new lists gives the next `active`; the step
-    counts only if some query was active when it began.
+    queries are still active, and `status` [3] i64: [any query active,
+    steps taken, rows read]. `step()` runs one beam step under `active`,
+    then the convergence test of the new lists gives the next `active`;
+    the step counts only if some query was active when it began, and adds
+    the rows it read (the candidates `_beam_step` scored).
 
     After a step a list is sorted by (distance, packed slot), with -1 /
     inf / unexpanded padding, so a step in which no query is active adds
     only (-1, inf) entries, re-sorts and leaves it bit for bit as it was:
     steps past convergence change nothing. `in_place` (a captured step)
-    writes the new state into the same tensors instead of rebinding."""
+    writes the new state into the same tensors instead of rebinding.
+
+    On a card the step is one launch of the beam-step kernel
+    (`ops/beam_step.py`, `fused`), which writes the state in place and
+    equals the torch step given the same distances (a list too long for
+    one block's shared memory gets a global workspace, `work`); the torch
+    step is the CPU's."""
 
     def __init__(self, dist_to, neighbors0, deleted, cand_s, cand_d, expand,
                  in_place=False):
@@ -299,19 +313,35 @@ class _Layer0Beam:
         self.cand_s, self.cand_d = cand_s, cand_d
         self.expanded = torch.zeros_like(cand_s, dtype=torch.bool)
         self.active = ~_beam_converged(cand_s, cand_d, self.expanded)
-        self.status = torch.stack([self.active.any().long(),
-                                   cand_s.new_zeros(())])
+        zero = cand_s.new_zeros(())
+        self.status = torch.stack([self.active.any().long(), zero, zero])
+        self.fused = cand_s.is_cuda
+        if self.fused:
+            self.scratch = cand_s.new_zeros(3)
+            self.work = fused_step.workspace(
+                *cand_s.shape, expand, neighbors0.shape[1],
+                dist_to.q32.shape[1], dist_to.vectors.dtype, cand_s.device)
 
     def step(self):
-        new = _beam_step(
+        if self.fused:
+            d = self.dist_to
+            fused_step.beam_step(
+                d.q32, d.q_sq, d.q_norm, d.vectors, d.sq_norms, self.deleted,
+                self.neighbors0, self.cand_s, self.cand_d, self.expanded,
+                self.active, self.status, self.scratch, self.work, d.metric,
+                self.expand,
+            )
+            return
+        *new, scored = _beam_step(
             self.dist_to, self.deleted, self.cand_s, self.cand_d,
             self.expanded, rows_of_slots=lambda slots: slots,
             nbr_lookup=lambda rows: self.neighbors0[rows],
-            active=self.active, expand=self.expand,
+            active=self.active, expand=self.expand, scored=True,
         )
         active = ~_beam_converged(*new)
         status = torch.stack([active.any().long(),
-                              self.status[1] + self.status[0]])
+                              self.status[1] + self.status[0],
+                              self.status[2] + scored.sum()])
         state = (*new, active, status)
         if self.in_place:
             for dst, src in zip((self.cand_s, self.cand_d, self.expanded,
@@ -324,11 +354,12 @@ class _Layer0Beam:
 
 def _run_blocks(replay, beam, max_steps, block):
     """Replays the step `block` times between host checks of
-    `beam.status` (one read of [any active, steps] a block, the
-    `beam.sync` span) until no query is active or `max_steps` replays
+    `beam.status` (one read of [any active, steps, rows read] a block,
+    the `beam.sync` span) until no query is active or `max_steps` replays
     ran; the last block is cut to fit. Returns the steps taken, which is
-    what one check before every step would have counted."""
-    done = steps = 0
+    what one check before every step would have counted, the rows they
+    read, and the replays."""
+    done = steps = rows = 0
     while done < max_steps:
         n = min(block, max_steps - done)
         for _ in range(n):
@@ -336,20 +367,27 @@ def _run_blocks(replay, beam, max_steps, block):
                 replay()
         done += n
         with trace.span("beam.sync"):
-            more, steps = beam.status.tolist()
+            more, steps, rows = beam.status.tolist()
         if not more:
             break
-    return steps
+    return steps, rows, done
+
+
+def _layer0_counts(beam, steps, rows):
+    """A layer-0 beam's counts for `DeviceIndex.steps`: the rows its steps
+    read, and its steps again if the kernel ran them."""
+    return {"dist_rows": rows, "fused_steps": steps if beam.fused else 0}
 
 
 def _ef_beam_layer0(dist_to, neighbors0, deleted, entry_slots, entry_dists,
                     ef, max_steps, expand=SEARCH_EXPAND, block=1,
                     graphs=None):
     """Layer-0 ef-beam. Entries [B, E]; returns sorted (slots, dists,
-    steps). The JAX lax.while_loop becomes a Python loop that checks the
-    convergence predicate on the host once every `block` steps. With
-    `graphs` (a search on a card) each step is a replay of a captured
-    CUDA graph, else a plain call of the eager step."""
+    steps, counts), counts as `_layer0_counts` gives them. The JAX
+    lax.while_loop becomes a Python loop that checks the convergence
+    predicate on the host once every `block` steps. With `graphs` (a
+    search on a card) each step is a replay of a captured CUDA graph, else
+    a plain call of the eager step."""
     B, E = entry_slots.shape
     dev = entry_slots.device
     expand = min(expand, ef)
@@ -370,9 +408,9 @@ def _ef_beam_layer0(dist_to, neighbors0, deleted, entry_slots, entry_dists,
         return graphs.run(dist_to, neighbors0, deleted, cand_s, cand_d,
                           expand, max_steps, block)
     beam = _Layer0Beam(dist_to, neighbors0, deleted, cand_s, cand_d, expand)
-    steps = _run_blocks(beam.step, beam, max_steps, block)
+    steps, rows, _ = _run_blocks(beam.step, beam, max_steps, block)
     return (torch.where(torch.isinf(beam.cand_d), -1, beam.cand_s),
-            beam.cand_d, steps)
+            beam.cand_d, steps, _layer0_counts(beam, steps, rows))
 
 
 # one capture at a time in the process (torch's rule for graph captures),
@@ -422,7 +460,7 @@ class _GraphedBeam:
         b.expanded.zero_()
         b.active.copy_(~_beam_converged(b.cand_s, b.cand_d, b.expanded))
         b.status[0].copy_(b.active.any())  # (item assignment would sync)
-        b.status[1].zero_()
+        b.status[1:].zero_()
 
 
 class BeamGraphs:
@@ -456,7 +494,7 @@ class BeamGraphs:
     def run(self, dist_to, neighbors0, deleted, cand_s, cand_d, expand,
             max_steps, block):
         """_ef_beam_layer0's loop on a graphed step: returns (slots,
-        dists, steps) of the B queries of cand_s / cand_d [B, ef]."""
+        dists, steps, counts) of the B queries of cand_s / cand_d [B, ef]."""
         B, ef = cand_s.shape
         rows = self.rows(B)
         key = (self.mirror.generation, rows, ef, expand,
@@ -466,12 +504,14 @@ class BeamGraphs:
                 dist_to, neighbors0, deleted, rows, ef, expand))
             try:
                 inst.load(dist_to, cand_s, cand_d)
-                steps = _run_blocks(inst.graph.replay, inst.beam, max_steps,
-                                    block)
                 b = inst.beam
+                steps, rows, replays = _run_blocks(inst.graph.replay, b,
+                                                   max_steps, block)
+                fused_step.replayed(replays)
                 return (torch.where(torch.isinf(b.cand_d[:B]), -1,
                                     b.cand_s[:B]),
-                        b.cand_d[:B].clone(), steps)
+                        b.cand_d[:B].clone(), steps,
+                        _layer0_counts(b, steps, rows))
             finally:
                 self._checkin(key, inst)
 
@@ -644,7 +684,8 @@ def _search_kernel_pivot(
 ):
     """Pivot entry (one fused scan against R sampled pivots replaces the
     upper-layer greedy descent), then the layer-0 beam. Returns
-    (dists [B, k] finalized, slots [B, k], steps)."""
+    (dists [B, k] finalized, slots [B, k], counts): the layer-0 steps
+    and `_layer0_counts`."""
     q32 = queries.float()
     q_sq = (q32 * q32).sum(dim=-1)
     q_norm = torch.sqrt(q_sq)
@@ -657,11 +698,12 @@ def _search_kernel_pivot(
     # degenerate case: every pivot tombstoned -> empty entry, empty results
     cur = torch.where(torch.isfinite(cur_d), cur, -1)
 
-    cand_s, cand_d, steps = _ef_beam_layer0(
+    cand_s, cand_d, steps, counts = _ef_beam_layer0(
         dist_to, neighbors0, deleted, cur[:, None], cur_d[:, None], ef,
         max_steps, expand=expand, block=BEAM_BLOCK, graphs=graphs,
     )
-    return (*_finish(dist_to, cand_s, cand_d, k, metric), steps)
+    return (*_finish(dist_to, cand_s, cand_d, k, metric),
+            {"layer0": steps, **counts})
 
 
 # an upper-layer walk stops after this many steps (the JAX package's bound)
@@ -707,8 +749,8 @@ def _search_kernel(
 ):
     """The pure top-down walk: from the entry point through every upper
     layer (greedy at ef_upper <= 1, else the beam descent), then the
-    layer-0 beam. Returns (dists [B, k] finalized, slots [B, k],
-    (upper steps, layer-0 steps))."""
+    layer-0 beam. Returns (dists [B, k] finalized, slots [B, k], counts):
+    the upper and the layer-0 steps and `_layer0_counts`."""
     B = queries.shape[0]
     dev = queries.device
     dist_to = _make_dist_fn(queries, vectors, sq_norms, metric)
@@ -724,11 +766,12 @@ def _search_kernel(
         dist_to, _flat_row_of(up_rows_flat, vectors.shape[0]), up_nbrs_cat,
         deleted, cur, cur_d, lvl, ef_upper, expand,
     )
-    cand_s, cand_d, steps = _ef_beam_layer0(
+    cand_s, cand_d, steps, counts = _ef_beam_layer0(
         dist_to, neighbors0, deleted, ent_s, ent_d, ef, max_steps,
         expand=expand, block=BEAM_BLOCK, graphs=graphs,
     )
-    return (*_finish(dist_to, cand_s, cand_d, k, metric), (up_steps, steps))
+    return (*_finish(dist_to, cand_s, cand_d, k, metric),
+            {"upper": up_steps, "layer0": steps, **counts})
 
 
 def _mid_scan(q_in, mid_vecs, mid_sq, mid_del, metric, ef_upper, rows):
@@ -784,7 +827,7 @@ def _search_kernel_mid(
     handed to the greedy walk or the beam descent from mid_level - 1, then
     the layer-0 beam. Routing comes from the graph alone (layer membership
     and upper adjacency). Returns (dists [B, k] finalized, slots [B, k],
-    (upper steps, layer-0 steps))."""
+    counts) as `_search_kernel` does."""
     B = queries.shape[0]
     dev = queries.device
     q32 = queries.float()
@@ -801,11 +844,12 @@ def _search_kernel_mid(
         dist_to, _flat_row_of(up_rows_flat, vectors.shape[0]), up_nbrs_cat,
         deleted, ent_s, ent_d, lvl, ef_upper, expand,
     )
-    cand_s, cand_d, steps = _ef_beam_layer0(
+    cand_s, cand_d, steps, counts = _ef_beam_layer0(
         dist_to, neighbors0, deleted, ent_s, ent_d, ef, max_steps,
         expand=expand, block=BEAM_BLOCK, graphs=graphs,
     )
-    return (*_finish(dist_to, cand_s, cand_d, k, metric), (up_steps, steps))
+    return (*_finish(dist_to, cand_s, cand_d, k, metric),
+            {"upper": up_steps, "layer0": steps, **counts})
 
 
 # ---------------------------------------------------------------------------
@@ -858,7 +902,7 @@ def _build_descent_kernel(
 
     # phase 3: ground layer, full efc width, seeded from each final list
     keep = torch.arange(ef_upper, device=dev)[None, :] < m
-    g_s, g_d, _ = _ef_beam_layer0(
+    g_s, g_d, *_ = _ef_beam_layer0(
         dist_to, neighbors0, deleted,
         torch.where(keep, cand_s, -1), torch.where(keep, cand_d, _INF),
         efc, max_steps, expand=BUILD_EXPAND,
@@ -1163,11 +1207,12 @@ class DeviceIndex:
     build-descent dispatch over a DeviceGraph mirror. `steps` counts, since
     the caller last cleared it, the sub-batches and the queries searched,
     the serial loop steps they took above and at layer 0, the layer-0
-    steps that ran as graph replays (on a card: all of them), the graphs
-    captured, and `dist_rows`: the rows whose distance the layer-0 beam
-    evaluated, each step's shape (the graph's padded rows where graphed)
-    times its expand x degree candidates, padding included, since the
-    device gathers those rows too."""
+    steps that ran as graph replays (on a card: all of them), the layer-0
+    steps the beam-step kernel ran (`fused_steps`, graphed or eager: on a
+    card all of them), the graphs
+    captured, and `dist_rows`: the rows the layer-0 beam read to score
+    them, the live neighbours of the active queries' expanded entries
+    (the kernel reads no other row; the torch step masks the others)."""
 
     ENTRY_MODES = ("pivot", "descent")
 
@@ -1176,7 +1221,8 @@ class DeviceIndex:
         self.graph = DeviceGraph(device, dtype)
         self.max_batch = max_batch
         self.steps = {"batches": 0, "queries": 0, "upper": 0, "layer0": 0,
-                      "graph_steps": 0, "graph_captures": 0, "dist_rows": 0}
+                      "graph_steps": 0, "fused_steps": 0,
+                      "graph_captures": 0, "dist_rows": 0}
         # serving threads search at once: their counts must not be lost
         self._steps_mu = threading.Lock()
         self._graphs = (BeamGraphs(self.graph, max_batch, self._count_capture)
@@ -1229,25 +1275,21 @@ class DeviceIndex:
             q_all = torch.from_numpy(np.ascontiguousarray(queries, np.float32))
             q_all = q_all.to(self.device)
         use_mid = descent_mid and "mid_slots" in a and self.graph.mid_level >= 1
-        # candidates a layer-0 step scores per row of its shape
-        per_row = min(SEARCH_EXPAND, ef) * a["neighbors0"].shape[1]
         outs = []
         for start in range(0, q_all.shape[0], self.max_batch):
             q = q_all[start : start + self.max_batch]
             B = q.shape[0]
-            rows = self._graphs.rows(B) if self._graphs is not None else B
             common = (q, a["vectors"], a["sq_norms"], a["deleted"],
                       a["neighbors0"])
             with trace.span("beam.subbatch", n=B):
                 if entry_mode == "pivot":
-                    d, s, l0 = _search_kernel_pivot(
+                    d, s, counts = _search_kernel_pivot(
                         *common, a["pivots"], a["pivot_vecs"], a["pivot_sq"],
                         metric=metric, ef=ef, k=k, max_steps=max_steps,
                         graphs=self._graphs,
                     )
-                    up = 0
                 elif use_mid:
-                    d, s, (up, l0) = _search_kernel_mid(
+                    d, s, counts = _search_kernel_mid(
                         *common, a["up_nbrs_cat"], a["up_rows_flat"],
                         a["mid_slots"], a["mid_vecs"], a["mid_sq"],
                         self.graph.mid_level, metric=metric, ef=ef, k=k,
@@ -1255,7 +1297,7 @@ class DeviceIndex:
                         scan_rows=self.max_batch, graphs=self._graphs,
                     )
                 else:
-                    d, s, (up, l0) = _search_kernel(
+                    d, s, counts = _search_kernel(
                         *common, a["up_nbrs_cat"], a["up_rows_flat"], entry,
                         entry_level, metric=metric, ef=ef, k=k,
                         max_steps=max_steps, ef_upper=ef_upper,
@@ -1264,11 +1306,10 @@ class DeviceIndex:
             with self._steps_mu:
                 self.steps["batches"] += 1
                 self.steps["queries"] += B
-                self.steps["upper"] += up
-                self.steps["layer0"] += l0
-                self.steps["dist_rows"] += l0 * rows * per_row
+                for key, n in counts.items():
+                    self.steps[key] += n
                 if self._graphs is not None:
-                    self.steps["graph_steps"] += l0
+                    self.steps["graph_steps"] += counts["layer0"]
             outs.append((d, s))
         return outs
 

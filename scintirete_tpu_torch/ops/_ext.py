@@ -35,6 +35,10 @@ SIGNATURES = {
     "pivot_scan": (
         "pivot_scan", "scnt_pivot_entry_scan", [_P] * 7 + [_I] * 4 + [_P],
     ),
+    "beam_step": (
+        "beam_step", "scnt_beam_step", [_P] * 14 + [_I] * 7 + [_P],
+    ),
+    "beam_step_smem": ("beam_step", "scnt_beam_step_smem", [_I] * 5),
     "lane_scan": (
         "lane_scan", "scnt_knn_lane_scan",
         [_P] * 8 + [_I, _I, _LL, _I, _I, _I, _I, _P],

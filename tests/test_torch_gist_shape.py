@@ -8,7 +8,7 @@ The data is the benchmark's workload v2 (`portbench/datagen.py`) at
 D = 960, cut to 3,000 rows and 200 queries; m 16 and ef_construction 200
 as the `gist1m-hnsw` configuration has them. Also checked: the layer-0
 beam's counters (`DeviceIndex.steps`: "queries", "dist_rows") count what
-the eager step ran.
+the eager step ran and read.
 """
 
 import numpy as np
@@ -108,19 +108,46 @@ def test_every_cluster_holds_an_entry_pivot(served, monkeypatch):
     assert covered() < np.unique(cluster).size
 
 
+def _rows_needed(cand_s, cand_d, expanded, active, nbrs, deleted, expand):
+    """Rows a layer-0 step must read, counted apart from the step: per
+    active query, the live neighbours of its `expand` nearest unexpanded
+    entries of finite distance (ties to the lower position)."""
+    total = 0
+    for b in np.flatnonzero(active):
+        u = np.where(expanded[b] | (cand_s[b] < 0), np.inf, cand_d[b])
+        for p in np.argsort(u, kind="stable")[:expand]:
+            if np.isfinite(u[p]):
+                nb = nbrs[cand_s[b, p]]
+                total += int((~deleted[nb[nb >= 0]]).sum())
+    return total
+
+
 def test_beam_counters_count_the_eager_steps(served, monkeypatch):
     """One sub-batch of 200 queries (search_batch_size 256): "queries"
-    grows by 200 and "dist_rows" by the layer-0 steps x 200 rows x expand
-    x degree. The rows the eager step scored (`_DistTo` calls) are those,
-    plus the steps of the last block past convergence, which the counter
-    leaves out."""
+    grows by 200 and "dist_rows" by the rows the eager steps needed, live
+    neighbours of the active queries' expanded entries, recounted here
+    from each step's lists: fewer than the layer-0 steps x 200 rows x
+    expand x degree that the eager step scores (`_DistTo` calls, plus the
+    steps of the last block past convergence), since the masked rows of
+    converged queries and of -1 or deleted neighbours are left out."""
     col, data = served["col"], served["data"]
     dev = col._index._get_device()
-    scored = []
+    a = dev.graph.arrays
+    nbrs, deleted = a["neighbors0"].numpy(), a["deleted"].numpy()
+    scored, needed = [], []
     plain = device_mod._DistTo.__call__
     monkeypatch.setattr(device_mod._DistTo, "__call__",
                         lambda self, slots: (scored.append(slots.shape),
                                              plain(self, slots))[1])
+    step = device_mod._beam_step
+
+    def counting_step(dist_to, deleted_t, cand_s, cand_d, expanded, **kw):
+        needed.append(_rows_needed(
+            cand_s.numpy(), cand_d.numpy(), expanded.numpy(),
+            kw["active"].numpy(), nbrs, deleted, kw["expand"]))
+        return step(dist_to, deleted_t, cand_s, cand_d, expanded, **kw)
+
+    monkeypatch.setattr(device_mod, "_beam_step", counting_step)
     before = dict(dev.steps)
     batch_search(served["svc"], data.queries)
     after = dev.steps
@@ -128,8 +155,10 @@ def test_beam_counters_count_the_eager_steps(served, monkeypatch):
     per_row = device_mod.SEARCH_EXPAND * col._index.store.m * 2
     assert dev._graphs is None  # the CPU runs the eager step
     assert grew["batches"] == 1 and grew["queries"] == QUERIES
-    assert grew["layer0"] > 0
-    assert grew["dist_rows"] == grew["layer0"] * QUERIES * per_row
+    assert grew["layer0"] > 0 and grew["fused_steps"] == 0
+    assert grew["dist_rows"] == sum(needed) > 0
+    assert grew["dist_rows"] < grew["layer0"] * QUERIES * per_row
     assert set(scored) == {(QUERIES, per_row)}
     extra = len(scored) - grew["layer0"]
     assert 0 <= extra < device_mod.BEAM_BLOCK
+    assert len(needed) == len(scored)
